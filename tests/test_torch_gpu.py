@@ -1,0 +1,76 @@
+"""Card-only tests of the torch port (marker ``gpu``): the CUDA union-join
+kernel vs its plain version, and -hist on CUDA vs on the CPU.
+
+They skip where torch.cuda.is_available() is false.  This file imports
+no JAX, so it runs on a machine with a card and no JAX:
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _table_and_queries(rng, k, n_read, n_asm, m, n_sentinel):
+    hi = np.iinfo(np.uint64).max if k == 32 else 1 << (2 * k)
+    rk = np.unique(rng.integers(0, hi, size=n_read, dtype=np.uint64))
+    rv = rng.integers(1, 1 << 31, size=rk.size).astype(np.uint32) * 2
+    ak = np.unique(np.concatenate([rk[::3], rng.integers(
+        0, hi, size=n_asm, dtype=np.uint64)]))
+    av = rng.integers(1, 9, size=ak.size).astype(np.uint32)
+    q = np.sort(np.concatenate([
+        rk[rng.integers(0, rk.size, size=m // 3)],
+        ak[rng.integers(0, ak.size, size=m // 3)],
+        rng.integers(0, hi, size=m - 2 * (m // 3) - n_sentinel,
+                     dtype=np.uint64),
+        np.full(n_sentinel, U64_MAX)]))
+    return (rk, rv, ak, av), q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", [(21, (1 << 16) - 5), (32, 1 << 16), (15, 1)])
+def test_kernel_matches_plain(cuda, k, m):
+    from merfin_tpu_torch.ops.union_join import UnionTable, union_join_kernel
+
+    rng = np.random.default_rng(k)
+    dbs, q = _table_and_queries(rng, k, 200_000, 50_000, m,
+                                min(999, m // 4))
+    table = UnionTable.from_dbs(*dbs, cuda)
+    qt = torch.from_numpy(q.view(np.int64)).to(cuda)
+    before = union_join_kernel.launches
+    got = table.lookup2_sorted(qt)
+    want = table.lookup2_plain(qt)
+    torch.cuda.synchronize()
+    assert union_join_kernel.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # and the plain version on the CPU agrees with both
+    cpu = UnionTable.from_dbs(*dbs, "cpu").lookup2_sorted(qt.cpu())
+    for g, c in zip(got, cpu):
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.gpu
+def test_hist_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The repeat world (fallback bins, kover fallback, bin growth,
+    packed groups, even k) gives the same hist file, stderr and
+    counters on CUDA as on the CPU."""
+    import chip_smoke as cs
+
+    world = cs.parity_world(3, 60_000, k=20, repeat=40_000)
+    argv = cs.materialize(world, str(tmp_path))
+    monkeypatch.setenv("MERFIN_PLATFORM", "cuda")
+    got = cs.run_port_inprocess(argv, str(tmp_path / "cuda"))
+    want = cs.run_port_subprocess(argv, str(tmp_path), "cpu")
+    assert got == want
+    assert got[2]["bin_fallbacks"] > 0

@@ -1,0 +1,50 @@
+"""The torch port never imports JAX: a fresh process imports every module
+of merfin_tpu_torch (and chip_smoke), runs a CPU -hist through the CLI,
+and finds no 'jax' in sys.modules."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import chip_smoke as cs
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+sys.path.insert(0, {repo!r})
+import merfin_tpu_torch, chip_smoke
+for m in pkgutil.walk_packages(merfin_tpu_torch.__path__, "merfin_tpu_torch."):
+    importlib.import_module(m.name)
+from merfin_tpu_torch.cli import main
+rc = main(sys.argv[1:])
+assert rc == 0, rc
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+assert not bad, bad
+print("NOJAX-OK")
+"""
+
+
+def test_port_runs_without_jax(tmp_path):
+    argv = cs.materialize(cs.recipe_world(), str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["MERFIN_PLATFORM"] = "cpu"
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(repo=str(REPO))] + argv
+        + ["-output", str(tmp_path / "out.hist")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("NOJAX-OK")
+    assert "chr1\t45\t45\t1986\t28.16" in proc.stderr
+
+
+def test_no_jax_import_in_sources():
+    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    files = list((REPO / "merfin_tpu_torch").rglob("*.py"))
+    files += [REPO / "chip_smoke.py", REPO / "bin" / "merfin-tpu-torch",
+              REPO / "tests" / "test_torch_gpu.py"]
+    assert len(files) > 10
+    for f in files:
+        assert not pat.search(f.read_text()), f
