@@ -7,11 +7,12 @@ by swapping the binary name:
     merfin-tpu-torch -hist -sequence asm.fasta -readmers read.mkdb \\
                      -seqmers asm.mkdb -peak 106.7 -output out.hist
 
--hist runs, always on the union sorted join (``-sortjoin`` is accepted).
-What is not ported yet (the other report types, -mesh, -nosortjoin, a
-multi-host launch, building the sequence DB when -seqmers is absent, the
-database tools) exits with code 1 and a one-line error.  The device comes
-from MERFIN_PLATFORM: ``cuda`` (default) or ``cpu``.
+-hist and -dump run on the union sorted join (``-sortjoin`` is accepted),
+-completeness on the single-value sorted join.  What is not ported yet
+(the variant modes, -mesh, -hist -nosortjoin, a multi-host launch,
+building the sequence DB when -seqmers is absent, the database tools)
+exits with code 1 and a one-line error.  The device comes from
+MERFIN_PLATFORM: ``cuda`` (default) or ``cpu``.
 """
 
 from __future__ import annotations
@@ -122,7 +123,7 @@ def merfin_main(argv: list[str]) -> int:
 
 def _usage() -> None:
     sys.stderr.write(
-        "usage: merfin-tpu-torch -hist              \\\n"
+        "usage: merfin-tpu-torch <report-type>      \\\n"
         "         -sequence <seq.fasta>     \\\n"
         "         -readmers <read.mkdb>     \\\n"
         "         -seqmers  <seq.mkdb>      \\\n"
@@ -131,11 +132,12 @@ def _usage() -> None:
         "         -output   <output>        \n"
         "\n"
         "  The PyTorch/CUDA port of merfin-tpu.  It accepts merfin-tpu's flags;\n"
-        "  -hist runs (always on the union sorted-join kernel; -sortjoin is\n"
-        "  accepted), -resume restarts at a sequence boundary.  The other report\n"
-        "  types, -mesh, -nosortjoin, multi-host launches, building <seq.mkdb>\n"
-        "  (-seqmers absent) and the database tools are not yet ported: use\n"
-        "  merfin-tpu for them.\n"
+        "  -hist, -dump and -completeness run (on the sorted-join kernels;\n"
+        "  -sortjoin is accepted), -resume restarts -hist and -dump at a\n"
+        "  sequence boundary.  The variant modes (-filter, -polish, -better,\n"
+        "  -strict, -loose), -mesh, -hist -nosortjoin, multi-host launches,\n"
+        "  building <seq.mkdb> (-seqmers absent) and the database tools are not\n"
+        "  yet ported: use merfin-tpu for them.\n"
         "\n"
         "  -hist\n"
         "   Generate a 0-centered k* histogram for sequences in <input.fasta>.\n"
@@ -144,6 +146,21 @@ def _usage() -> None:
         "             -min m / -max m  ignore read kmers with value below / above m\n"
         "             -memory m        don't use more than m GB memory for loading mers\n"
         "   Output: k* <tab> frequency; QV at the end, in stderr.\n"
+        "\n"
+        "  -dump\n"
+        "   Dump readK, asmK, and k* per bases (k-mers) in <input.fasta>.\n"
+        "   Required: -sequence, -readmers, -seqmers, -peak, and -output.\n"
+        "   Optional: -prob <file>, -min m / -max m, -memory m as for -hist\n"
+        "             -skipMissing     skip the missing kmer sites to be printed\n"
+        "   Output: seqName <tab> seqPos <tab> readK <tab> asmK <tab> k*\n"
+        "           (a .gz output name writes gzip)\n"
+        "\n"
+        "  -completeness\n"
+        "   Compute kmer completeness using expected copy numbers for all kmers.\n"
+        "   Required: -readmers, -seqmers, and -peak.\n"
+        "   Optional: -prob <file>\n"
+        "   Output: per-slice lines, TOTAL readK, TOTAL undrcpy and\n"
+        "           COMPLETENESS, in stderr.\n"
         "\n"
         "  Device: MERFIN_PLATFORM=cuda (default) or cpu.\n"
         "\n\n"
@@ -157,11 +174,11 @@ def _db_max(db) -> int:
 
 
 def _unported(cfg: MerfinConfig) -> str | None:
-    if cfg.report_type != "hist":
+    if cfg.report_type not in ("hist", "dump", "completeness"):
         return f"-{cfg.report_type}"
     if cfg.mesh:
         return "-mesh"
-    if cfg.sortjoin is False:
+    if cfg.report_type == "hist" and cfg.sortjoin is False:
         return "-nosortjoin (the gather lookup path)"
     if int(os.environ.get("MERFIN_NUM_PROCESSES", "1") or "1") > 1:
         return "a multi-host launch (MERFIN_NUM_PROCESSES > 1)"
@@ -171,7 +188,8 @@ def _unported(cfg: MerfinConfig) -> str | None:
 
 
 def run(cfg: MerfinConfig) -> int:
-    """Load DBs and run -hist — the JAX CLI's run() for its ported part."""
+    """Load DBs and run the report — the JAX CLI's run() for its ported
+    part."""
     what = _unported(cfg)
     if what is not None:
         return _not_ported(what)
@@ -210,12 +228,22 @@ def run(cfg: MerfinConfig) -> int:
         return 1
 
     # device-memory fail-fast: the tables must fit the card they go to
-    if device.type == "cuda":
+    # (as in the JAX CLI, not for -completeness, whose read DB streams)
+    if device.type == "cuda" and cfg.report_type != "completeness":
         hbm_gb = torch.cuda.mem_get_info(device)[1] / 1024**3
         if req > 0.92 * hbm_gb:    # headroom for batches
             print(f"\nLookup tables need {req:.1f} GB per device but "
                   f"device HBM is {hbm_gb:.1f} GB.", file=log)
             return 1
+
+    if cfg.report_type == "completeness":
+        from merfin_tpu_torch.modes.completeness import run_completeness
+
+        print("-- Compute completeness.", file=log)
+        run_completeness(read_db, asm_db, cfg.peak, prob_table=prob, log=log,
+                         device=device)
+        print("Bye!", file=log)
+        return 0
 
     print(f"-- Loading kmers from '{cfg.read_db_name}' into lookup table.", file=log)
     read_lookup = build_lookup(read_db, min_v=cfg.min_v, max_v=cfg.max_v,
@@ -226,14 +254,26 @@ def run(cfg: MerfinConfig) -> int:
     seq_file = SeqFile(cfg.seq_name)
 
     from merfin_tpu_torch.modes.engine import KstarEngine
-    from merfin_tpu_torch.modes.hist import run_hist
 
-    print(f"-- Generate histogram of the k* metric to '{cfg.out_name}'.", file=log)
-    engine = KstarEngine(read_lookup, asm_lookup, k, cfg.peak, prob_table=prob,
-                         max_value=_db_max(read_db), exact_max=True,
-                         asm_max_value=_db_max(asm_db), device=device)
-    print("-- Using sorted-join lookup kernel for -hist.", file=log)
-    run_hist(engine, seq_file, cfg.out_name, log=log, resume=cfg.resume)
+    def make_engine():
+        return KstarEngine(read_lookup, asm_lookup, k, cfg.peak,
+                           prob_table=prob, max_value=_db_max(read_db),
+                           exact_max=True, asm_max_value=_db_max(asm_db),
+                           device=device)
+
+    if cfg.report_type == "hist":
+        from merfin_tpu_torch.modes.hist import run_hist
+
+        print(f"-- Generate histogram of the k* metric to '{cfg.out_name}'.", file=log)
+        engine = make_engine()
+        print("-- Using sorted-join lookup kernel for -hist.", file=log)
+        run_hist(engine, seq_file, cfg.out_name, log=log, resume=cfg.resume)
+    else:
+        from merfin_tpu_torch.modes.dump import run_dump
+
+        print(f"-- Dump per-base k* metric to '{cfg.out_name}'.", file=log)
+        run_dump(make_engine(), seq_file, cfg.out_name,
+                 skip_missing=cfg.skip_missing, log=log, resume=cfg.resume)
     print("Bye!", file=log)
     return 0
 

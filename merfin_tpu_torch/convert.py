@@ -6,6 +6,12 @@
   - ``SortJoinUnionV4``'s ``rec``/``seg_first`` -> decode the big-endian
     byte planes of ``build_rec2_np`` (merfin_tpu/ops/join_kernel4.py:
     354-395) back to keys and values and drop the pads.
+* The single-value tables:
+  - ``_JnpSortJoin.tree()`` -> (keys, vals);
+  - ``SortJoinTable.tree()`` / ``SortJoinTableV5.tree()`` (v1/v5: u32
+    hi/lo/value planes and ``keys_u64``) -> keys, the first n values;
+  - ``SortJoinTableV4``'s ``rec``/``seg_first`` -> decode the 8 key and
+    4 value byte planes of ``build_rec_np`` (join_kernel4.py:128-171).
 * The value map and the bin tables: the host arrays of the shared
   ``ValueMap``/``BinTable`` as they are, placed on the device.
 """
@@ -15,11 +21,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# join_kernel4.py's record geometry (8 key + 8 value byte planes of 64
-# rows x 128 lanes per 8192-key segment, then 8 fence rows)
+# join_kernel4.py's record geometry (8 key planes then 4 bytes for each
+# u32 value column, of 64 rows x 128 lanes per 8192-key segment, then 8
+# fence rows)
 SEG_ROWS = 64
 LANES = 128
-N_PLANES = 16
+N_KEY_PLANES = 8
 PAD_KEY = np.uint64(0x7FFFFFFF_FFFFFFFF)
 
 
@@ -30,33 +37,59 @@ def union_from_tree(tree):
             vb.astype(np.uint32))
 
 
-def union_from_rec2(rec, seg_first=None, n: int | None = None):
-    """``SortJoinUnionV4`` records -> (keys u64, read u32, asm u32).
+def single_from_tree(tree):
+    """``_JnpSortJoin.tree()`` (keys, vals) or a v1/v5 ``tree()``
+    (t_hi, t_lo, t_v, keys_u64) -> (keys u64, vals u32)."""
+    if len(tree) == 2:
+        keys, vals = (np.asarray(x) for x in tree)
+    else:
+        keys = np.asarray(tree[3])
+        vals = np.asarray(tree[2]).reshape(-1)[: keys.size]
+    return keys.astype(np.uint64), vals.astype(np.uint32)
 
-    ``n`` is the real key count (``SortJoinUnionV4.n``); without it the
-    trailing pad entries (pad key, both values 0) are dropped.
+
+def decode_rec(rec, n_vals: int, seg_first=None, n: int | None = None):
+    """v4 records with ``n_vals`` u32 value columns -> (keys u64, u32
+    column, ...).
+
+    ``n`` is the real key count (the table's ``n``); without it the
+    trailing pad entries (pad key, every value 0) are dropped.
     ``seg_first`` is only checked against the decoded keys."""
     rec = np.asarray(rec)
+    n_planes = N_KEY_PLANES + 4 * n_vals
     n_segs = rec.shape[0]
-    planes = rec[:, : N_PLANES * SEG_ROWS, :].reshape(
-        n_segs, N_PLANES, SEG_ROWS * LANES)
-    planes = planes.transpose(1, 0, 2).reshape(N_PLANES, -1).astype(np.uint32)
+    planes = rec[:, : n_planes * SEG_ROWS, :].reshape(
+        n_segs, n_planes, SEG_ROWS * LANES)
+    planes = planes.transpose(1, 0, 2).reshape(n_planes, -1).astype(np.uint32)
 
     def word(p0):        # four big-endian byte planes -> u32
         return ((planes[p0] << 24) | (planes[p0 + 1] << 16)
                 | (planes[p0 + 2] << 8) | planes[p0 + 3])
 
     keys = (word(0).astype(np.uint64) << np.uint64(32)) | word(4)
-    va, vb = word(8), word(12)
+    vals = [word(N_KEY_PLANES + 4 * j) for j in range(n_vals)]
     if n is None:
-        real = np.flatnonzero(~((keys == PAD_KEY) & (va == 0) & (vb == 0)))
+        pad = keys == PAD_KEY
+        for v in vals:
+            pad &= v == 0
+        real = np.flatnonzero(~pad)
         n = int(real[-1]) + 1 if real.size else 0
-    keys, va, vb = keys[:n], va[:n], vb[:n]
+    keys = keys[:n]
     if seg_first is not None and n:
         seg_first = np.asarray(seg_first, np.uint64)
         real = keys[:: SEG_ROWS * LANES]
         assert np.array_equal(seg_first[: real.size], real)
-    return keys, va, vb
+    return (keys, *(v[:n] for v in vals))
+
+
+def union_from_rec2(rec, seg_first=None, n: int | None = None):
+    """``SortJoinUnionV4`` records -> (keys u64, read u32, asm u32)."""
+    return decode_rec(rec, 2, seg_first, n)
+
+
+def single_from_rec(rec, seg_first=None, n: int | None = None):
+    """``SortJoinTableV4`` records -> (keys u64, vals u32)."""
+    return decode_rec(rec, 1, seg_first, n)
 
 
 def value_map_tensors(value_map, device):

@@ -1,5 +1,5 @@
-"""The streaming K* engine for -hist (port of ``merfin_tpu/modes/engine.py``,
-union sorted-join path).
+"""The streaming K* engine for -hist and -dump (port of
+``merfin_tpu/modes/engine.py``, union sorted-join path).
 
 Sequences are cut into fixed-size windows with k-1 overlap; each batch of
 chunks runs one device step: unpack the 2-bit transfer planes, k-mer
@@ -14,13 +14,18 @@ Even k: palindromic windows (fmer == rmer) double both values
 (merfin-globals.C:101-110); the x2 flag, and the group path's segment
 ids, follow the sort through its permutation (argsort + gather).
 
-Not ported yet (see ROADMAP.md): the gather path, the two-table join,
-the -dump programs and the ``MERFIN_HIST_BOUNDS=runs`` counting variant.
+-dump needs values by position.  The JAX package takes them from a
+gather table; here the dump step rides the same sorted union join and
+scatters the values back through the sort's permutation, on the device.
+
+Not ported (see ROADMAP.md): the gather path, the two-table join and the
+``MERFIN_HIST_BOUNDS=runs`` counting variant.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 
 import numpy as np
 import torch
@@ -28,7 +33,7 @@ import torch
 from merfin_tpu.kcore.pack import pack_transfer_np
 from merfin_tpu.score.bin_table import BinTable
 from merfin_tpu.score.kover import finish_kover, kover_vmaxp
-from merfin_tpu.score.kstar import ProbTable
+from merfin_tpu.score.kstar import ProbTable, k_metric_np
 from merfin_tpu.score.value_map import ValueMap
 from merfin_tpu.utils.prefetch import prefetch_iter
 from merfin_tpu_torch import convert
@@ -44,6 +49,7 @@ from merfin_tpu_torch.score.kover import kover_parts
 NBINS = 1 << 14          # default k* bins per side
 PAD_CODE = 4
 SEG_MAX = 1024           # max sequences packed into one group dispatch
+DUMP_BATCH = 4           # chunk rows of one packed -dump group
 
 
 class BinOverflow(RuntimeError):
@@ -207,6 +213,9 @@ class KstarEngine:
         self._bins = convert.bin_table_tensors(self.bin_table, self.device)
         self.nbins = NBINS
         self.group_capacity = self.batch * self.chunk
+        # -dump packs groups of DUMP_BATCH rows, as the JAX CLI's dump
+        # engine does (batch 4), so both emit the same groups
+        self.dump_group_capacity = DUMP_BATCH * self.chunk
 
     def grow_bins(self, min_bins: int) -> None:
         """Grow the k* bin count to a power of two >= min_bins."""
@@ -216,7 +225,8 @@ class KstarEngine:
 
     def _lookup_kvals_sorted(self, codes, seg=None):
         """codes uint8 [B, C + k - 1] -> sorted-order (readK, asmK, prob,
-        valid, overflow, raw read value, seg)."""
+        valid, overflow, raw read value, seg, order); ``order`` is the
+        sort's permutation (sorted slot -> flat window index)."""
         fmer, rmer, valid = kmer_windows(codes, self.k)
         canon = torch.where(valid, umin(fmer, rmer),
                             torch.full_like(fmer, U64_MAX))
@@ -236,7 +246,7 @@ class KstarEngine:
         zero = torch.zeros((), dtype=torch.float64, device=qs.device)
         read_k = torch.where(valid_s, read_k, zero)
         asm_k = torch.where(valid_s, asm_v.to(torch.float64), zero)
-        return read_k, asm_k, prob, valid_s, overflow, read_v, seg_s
+        return read_k, asm_k, prob, valid_s, overflow, read_v, seg_s, order
 
     def _hist_chunk(self, codes, seg=None):
         """One -hist step (processHistogram, merfin-histogram.C:36-92):
@@ -245,7 +255,7 @@ class KstarEngine:
         the QV* excess, everything else binned in over[].  With ``seg``
         (the packed-group path) kasm/kmissing come back per slot."""
         (read_k, asm_k, prob, valid, overflow, read_v,
-         seg_s) = self._lookup_kvals_sorted(codes, seg)
+         seg_s, _) = self._lookup_kvals_sorted(codes, seg)
         missing = valid & (read_k == 0)
         is_undr = valid & (read_k > 0) & (asm_k > read_k)
         is_over = valid & (read_k > 0) & ~is_undr
@@ -269,6 +279,41 @@ class KstarEngine:
             undr_idx, over_idx, is_undr, is_over, self.nbins)
         return [kasm, kmissing, kover_fb, undr_hist, over_hist, max_idx,
                 overflow, fallbacks, kc, kn, kr, kfbc]
+
+    def _fetch32(self) -> bool:
+        """True when readK/asmK provably fit u32 (``ValueMap.fits_u32``):
+        the positional fetch then rides as u32 bit patterns, half the
+        bytes of f64, with the same values."""
+        return self.value_map.fits_u32(self.k)
+
+    def _dump_chunk(self, codes, seg=None):
+        """One -dump step (processDump, merfin-dump.C:21-68): readK and
+        asmK back in window order (the scatter ``out[order] = x`` undoes
+        the join's sort), with kasm/kmissing, per slot given ``seg``.  K*
+        is computed on the host from the fetched values."""
+        (read_k, asm_k, _, valid, overflow, _, seg_s,
+         order) = self._lookup_kvals_sorted(codes, seg)
+        missing = valid & (read_k == 0)
+        if seg_s is None:
+            kasm, kmissing = valid.sum(), missing.sum()
+        else:
+            kasm, kmissing = seg_counts_by_sort(seg_s, valid, missing)
+        if self._fetch32():   # integers < 2^32: u32 bit patterns in int32
+            read_k = read_k.to(torch.int64).to(torch.int32)
+            asm_k = asm_k.to(torch.int64).to(torch.int32)
+        pos = []              # flat, in window order
+        for x in (read_k, asm_k):
+            out = torch.empty_like(x)
+            out[order] = x
+            pos.append(out)
+        return pos[0], pos[1], kasm, kmissing, overflow
+
+    def _fetch_f64(self, x: torch.Tensor) -> np.ndarray:
+        """A positional readK/asmK fetch as host f64 (exact)."""
+        x = x.cpu().numpy()
+        if x.dtype == np.int32:
+            x = x.view(np.uint32)
+        return x.astype(np.float64, copy=False)
 
     def _to_device(self, *arrays):
         return [torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -316,6 +361,33 @@ class KstarEngine:
 
     def hist_group(self, seqs):
         return self.hist_group_finalize(self.hist_group_dispatch(seqs))
+
+    def dump_group(self, seqs):
+        """-dump for a packed group of small sequences (one step): per
+        sequence (readK, asmK, K*, kasm, kmissing), host f64 arrays over
+        its windows.  Same packing contract as hist_group, at
+        ``dump_group_capacity``."""
+        planes, vbits, marks, base, starts = pack_group_transfer(
+            seqs, self.k, self.chunk, DUMP_BATCH, self.dump_group_capacity)
+        planes, vbits, marks, base = self._to_device(planes, vbits, marks,
+                                                     base)
+        rk, ak, kasm_seg, kmis_seg, overflow = self._dump_chunk(
+            self._unpack(planes, vbits),
+            seg_from_marks(marks, base, self.chunk))
+        self.overflow_values += int(overflow)
+        # row-major [rows, C] flattening maps stream window p to index p
+        rk = self._fetch_f64(rk).reshape(-1)
+        ak = self._fetch_f64(ak).reshape(-1)
+        kasm_seg = kasm_seg.cpu().numpy()
+        kmis_seg = kmis_seg.cpu().numpy()
+        out = []
+        for i, c in enumerate(seqs):
+            nwin = max(0, c.shape[0] - self.k + 1)
+            r = rk[starts[i]: starts[i] + nwin]
+            a = ak[starts[i]: starts[i] + nwin]
+            out.append((r, a, k_metric_np(r, a), int(kasm_seg[i]),
+                        int(kmis_seg[i])))
+        return out
 
     # ---- one long sequence ----
 
@@ -374,3 +446,29 @@ class KstarEngine:
         undr += uh.cpu().numpy()
         over += oh.cpu().numpy()
         return stats, undr, over
+
+    def dump_sequence(self, codes: np.ndarray):
+        """Yield (start, readK, asmK, K*, kasm, kmissing) per chunk, with
+        2 steps in flight: chunk i+1's copy and compute overlap chunk i's
+        fetch."""
+        if codes.shape[0] < self.k:
+            return
+        n_pos = codes.shape[0] - self.k + 1
+
+        def finalize(start, out):
+            rk, ak, kasm, kmis, overflow = out
+            self.overflow_values += int(overflow)
+            n = min(self.chunk, n_pos - start)
+            rk = self._fetch_f64(rk)[:n]
+            ak = self._fetch_f64(ak)[:n]
+            return start, rk, ak, k_metric_np(rk, ak), int(kasm), int(kmis)
+
+        pending: deque = deque()
+        for start, buf in self.chunks_of(codes):
+            planes, vbits = self._to_device(*pack_transfer_np(buf[None]))
+            pending.append((start, self._dump_chunk(self._unpack(planes,
+                                                                 vbits))))
+            if len(pending) > 2:
+                yield finalize(*pending.popleft())
+        while pending:
+            yield finalize(*pending.popleft())

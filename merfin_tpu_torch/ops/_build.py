@@ -1,5 +1,5 @@
-"""Build and load the port's CUDA kernels (nvcc -> shared library ->
-ctypes).
+"""Build, load and bind the port's CUDA kernels (nvcc -> shared library
+-> ctypes).
 
 Sources live in ``merfin_tpu_torch/csrc``; each is compiled for sm_90a at
 first use into ``build/merfin_tpu_torch/`` at the repository root.  The
@@ -72,3 +72,56 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LIBS[name] = lib
     return lib
+
+
+def build_all(names) -> None:
+    """Build several libraries at once, one nvcc process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        for f in [pool.submit(build, n) for n in names]:
+            f.result()
+
+
+class Kernel:
+    """One C entry point of a ``csrc`` library, bound with ctypes.
+
+    Subclasses name the library (``lib``), the entry (``symbol``) and its
+    ``argtypes``; ``launches`` counts the launches this wrapper made."""
+
+    name = lib = symbol = source = replaces = ""
+    argtypes: list = []
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+
+    def build(self):
+        """Compile (if needed) and bind the kernel; returns the C entry."""
+        if self._fn is None:
+            fn = getattr(load(self.lib), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def check(self, q, *specs) -> None:
+        """Raise unless every (tensor, dtype) of ``specs`` is a contiguous
+        1-D tensor of that dtype on the CUDA device of ``q``."""
+        dev = q.device
+        if dev.type != "cuda":
+            raise ValueError(f"{self.name} kernel takes CUDA tensors")
+        for t, dt in specs:
+            if t.device != dev or t.dtype != dt or t.dim() != 1 \
+                    or not t.is_contiguous():
+                raise ValueError(
+                    f"{self.name}: expected contiguous 1-D {dt} on {dev}, "
+                    f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+    def launch(self, *args) -> None:
+        fn = self.build()
+        err = fn(*args)
+        self.launches += 1
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} launch failed: CUDA error {err}")

@@ -24,7 +24,10 @@ import ctypes
 import numpy as np
 import torch
 
+from merfin_tpu_torch.ops import _build
 from merfin_tpu_torch.ops.kmer_ops import U64_MAX, bias
+
+_VP = ctypes.c_void_p
 
 
 def union_merge_np(keys_a, vals_a, keys_b, vals_b):
@@ -60,73 +63,53 @@ def u32_to_int64(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & 0xFFFFFFFF
 
 
-def lookup2_plain(keys, read_vals, asm_vals, q, keys_biased=None):
-    """Plain PyTorch union join (the ``_JnpSortJoin2`` probe):
-    searchsorted + clamp + equality + gather.  ``keys_biased`` is
+def probe_plain(keys, q, keys_biased=None):
+    """Plain sorted-join probe: (index of the first key >= q, clamped into
+    the table; hit mask).  Sentinels never hit.  ``keys_biased`` is
     ``bias(keys)``, precomputed by callers that probe many times."""
     n = keys.shape[0]
-    if n == 0:
-        z = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
-        return z, z.clone()
     if keys_biased is None:
         keys_biased = bias(keys)
     idx = torch.searchsorted(keys_biased, bias(q)).clamp_(max=n - 1)
-    hit = (keys[idx] == q) & (q != U64_MAX)
+    return idx, (keys[idx] == q) & (q != U64_MAX)
+
+
+def lookup2_plain(keys, read_vals, asm_vals, q, keys_biased=None):
+    """Plain PyTorch union join (the ``_JnpSortJoin2`` probe):
+    searchsorted + clamp + equality + gather."""
+    if keys.shape[0] == 0:
+        z = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+        return z, z.clone()
+    idx, hit = probe_plain(keys, q, keys_biased)
     zero = torch.zeros((), dtype=torch.int32, device=q.device)
     return (torch.where(hit, read_vals[idx], zero),
             torch.where(hit, asm_vals[idx], zero))
 
 
-class UnionJoinKernel:
-    """ctypes wrapper of ``csrc/union_join.cu``; ``launches`` counts the
-    kernel launches it made."""
+class UnionJoinKernel(_build.Kernel):
+    """ctypes wrapper of ``csrc/union_join.cu:merfin_union_join``."""
 
-    name = "union_join"
+    name = lib = "union_join"
+    symbol = "merfin_union_join"
     source = "merfin_tpu_torch/csrc/union_join.cu"
     replaces = "merfin_tpu/ops/join_kernel4.py:264"
-
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-
-    def build(self):
-        """Compile (if needed) and bind the kernel; returns the C entry."""
-        if self._fn is None:
-            from merfin_tpu_torch.ops import _build
-
-            fn = _build.load(self.name).merfin_union_join
-            vp = ctypes.c_void_p
-            fn.argtypes = [vp, vp, vp, ctypes.c_longlong, vp,
-                           ctypes.c_longlong, vp, vp, vp]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    argtypes = [_VP, _VP, _VP, ctypes.c_longlong, _VP, ctypes.c_longlong,
+                _VP, _VP, _VP]
 
     def __call__(self, keys, read_vals, asm_vals, q):
-        dev = q.device
-        if dev.type != "cuda":
-            raise ValueError("union_join kernel takes CUDA tensors")
-        for t, dt in ((keys, torch.int64), (read_vals, torch.int32),
-                      (asm_vals, torch.int32), (q, torch.int64)):
-            if t.device != dev or t.dtype != dt or t.dim() != 1 \
-                    or not t.is_contiguous():
-                raise ValueError(
-                    f"union_join: expected contiguous 1-D {dt} on {dev}, "
-                    f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        self.check(q, (keys, torch.int64), (read_vals, torch.int32),
+                   (asm_vals, torch.int32), (q, torch.int64))
         n, m = keys.shape[0], q.shape[0]
         if read_vals.shape[0] != n or asm_vals.shape[0] != n:
             raise ValueError("union_join: value columns must match keys")
-        out_r = torch.empty(m, dtype=torch.int32, device=dev)
-        out_a = torch.empty(m, dtype=torch.int32, device=dev)
+        out_r = torch.empty(m, dtype=torch.int32, device=q.device)
+        out_a = torch.empty(m, dtype=torch.int32, device=q.device)
         if m == 0:
             return out_r, out_a
-        fn = self.build()
-        err = fn(keys.data_ptr(), read_vals.data_ptr(), asm_vals.data_ptr(),
-                 n, q.data_ptr(), m, out_r.data_ptr(), out_a.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-        self.launches += 1
-        if err != 0:
-            raise RuntimeError(f"union_join launch failed: CUDA error {err}")
+        self.launch(keys.data_ptr(), read_vals.data_ptr(),
+                    asm_vals.data_ptr(), n, q.data_ptr(), m,
+                    out_r.data_ptr(), out_a.data_ptr(),
+                    torch.cuda.current_stream(q.device).cuda_stream)
         return out_r, out_a
 
 

@@ -1,5 +1,6 @@
-"""Card-only tests of the torch port (marker ``gpu``): the CUDA union-join
-kernel vs its plain version, and -hist on CUDA vs on the CPU.
+"""Card-only tests of the torch port (marker ``gpu``): each CUDA kernel
+(union_join, sorted_join, window_join) vs its plain version, and -hist,
+-completeness and -dump on CUDA vs on the CPU.
 
 They skip where torch.cuda.is_available() is false.  This file imports
 no JAX, so it runs on a machine with a card and no JAX:
@@ -58,6 +59,56 @@ def test_kernel_matches_plain(cuda, k, m):
     cpu = UnionTable.from_dbs(*dbs, "cpu").lookup2_sorted(qt.cpu())
     for g, c in zip(got, cpu):
         assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["sorted_join", "window_join"])
+@pytest.mark.parametrize("k", [15, 21, 31])
+def test_single_value_kernels_match_plain(cuda, route, k):
+    from merfin_tpu_torch.ops.sorted_join import SortedJoinTable
+    from merfin_tpu_torch.ops.window_join import SortJoinTable
+
+    cls = SortedJoinTable if route == "sorted_join" else SortJoinTable
+    rng = np.random.default_rng(k)
+    keys = np.unique(rng.integers(0, 1 << (2 * k), size=300_000,
+                                  dtype=np.uint64))
+    vals = rng.integers(0, 1 << 32, size=keys.size).astype(np.uint32)
+    m = (1 << 17) - 3
+    q = np.sort(np.concatenate([
+        keys[rng.integers(0, keys.size, size=m // 2)],
+        rng.integers(0, 1 << (2 * k), size=m - m // 2 - 500,
+                     dtype=np.uint64),
+        np.full(500, U64_MAX)]))
+    table = cls(keys, vals, cuda)
+    qt = torch.from_numpy(q.view(np.int64)).to(cuda)
+    before = table.kernel.launches
+    got = table.lookup_sorted(qt)
+    want = table.lookup_plain(qt)
+    torch.cuda.synchronize()
+    assert table.kernel.name == route
+    assert table.kernel.launches == before + 1
+    assert torch.equal(got, want)
+    cpu = cls(keys, vals, "cpu").lookup_sorted(qt.cpu())
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["completeness", "dump"])
+def test_modes_cuda_match_cpu(cuda, mode, tmp_path, monkeypatch):
+    """-completeness and -dump on the repeat world give the same output,
+    stderr and counters on CUDA as on the CPU."""
+    import chip_smoke as cs
+
+    world = cs.parity_world(3, 60_000, k=21, repeat=40_000)
+    argv = cs.mode_argv(cs.materialize(world, str(tmp_path)), mode)
+    monkeypatch.setenv("MERFIN_PLATFORM", "cuda")
+    got = cs.run_port_inprocess(argv, str(tmp_path / "cuda"), out="out")
+    want = cs.run_port_subprocess(argv, str(tmp_path), "cpu", out="out")
+    assert got == want
+    if mode == "dump":
+        assert got[0].count(b"\n") > 100_000
+    else:
+        assert "COMPLETENESS" in got[1]
 
 
 @pytest.mark.gpu

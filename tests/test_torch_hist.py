@@ -115,13 +115,18 @@ def test_resume_continues_exactly(tmp_path):
 
 def test_chip_smoke_phases_on_cpu(tmp_path, monkeypatch):
     """chip_smoke.py's oracle and full-world phases at a tiny size on the
-    CPU: the small worlds match tests/refmodel.py, and the full world's
-    kasm/kmissing match the independent numpy count."""
+    CPU: the small worlds match tests/refmodel.py; the full world's
+    -hist kasm/kmissing, -completeness totals and -dump per-sequence
+    counts match the independent numpy counts."""
     monkeypatch.setenv("MERFIN_PLATFORM", "cpu")
     cs.check_small_worlds(str(tmp_path), 0, 30_000, 40_000, "cpu")
+    cs.check_small_modes(str(tmp_path), 0, 30_000, "cpu")
     w = cs.full_world(str(tmp_path / "full"), 0, 1.0, 1 << 18, "cpu")
     assert w["n_seqs"] > 4 and w["kmissing"] > 0
     assert cs._run_full(w, str(tmp_path / "full" / "run")) == 0
+    assert cs._run_completeness_full(w, str(tmp_path / "full" / "c")) == {
+        "sorted_join": 0, "window_join": 0}
+    assert cs._run_dump_full(w, str(tmp_path / "full" / "d")) == 0
 
 
 def test_group_and_stream_paths_agree(tmp_path):
@@ -152,10 +157,11 @@ def test_group_and_stream_paths_agree(tmp_path):
 
 
 @pytest.mark.parametrize("extra,env", [
-    (["-dump"], {}), (["-hist", "-mesh", "1x2"], {}),
+    (["-dump", "-mesh", "1x2"], {}), (["-hist", "-mesh", "1x2"], {}),
     (["-hist", "-nosortjoin"], {}),
     (["-hist"], {"MERFIN_NUM_PROCESSES": "2"}),
-    (["-completeness"], {}),
+    (["-completeness"], {"MERFIN_NUM_PROCESSES": "2"}),
+    (["-filter", "-vcf", "x.vcf"], {}),
 ])
 def test_unported_paths_exit_1(extra, env, monkeypatch, capsys):
     from merfin_tpu_torch.cli import main

@@ -1,6 +1,6 @@
 """The torch port never imports JAX: a fresh process imports every module
-of merfin_tpu_torch (and chip_smoke), runs a CPU -hist through the CLI,
-and finds no 'jax' in sys.modules."""
+of merfin_tpu_torch (and chip_smoke), runs a CPU -hist, -completeness and
+-dump through the CLI, and finds no 'jax' in sys.modules."""
 
 import os
 import pathlib
@@ -19,8 +19,11 @@ import merfin_tpu_torch, chip_smoke
 for m in pkgutil.walk_packages(merfin_tpu_torch.__path__, "merfin_tpu_torch."):
     importlib.import_module(m.name)
 from merfin_tpu_torch.cli import main
-rc = main(sys.argv[1:])
-assert rc == 0, rc
+argv = sys.argv[1:]
+for mode, out in (("-hist", "out.hist"), ("-completeness", "unused"),
+                  ("-dump", "out.dump")):
+    rc = main([mode] + argv + ["-output", out])
+    assert rc == 0, (mode, rc)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not bad, bad
 print("NOJAX-OK")
@@ -28,16 +31,18 @@ print("NOJAX-OK")
 
 
 def test_port_runs_without_jax(tmp_path):
-    argv = cs.materialize(cs.recipe_world(), str(tmp_path))
+    argv = cs.materialize(cs.recipe_world(), str(tmp_path))[1:]
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     env["MERFIN_PLATFORM"] = "cpu"
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(repo=str(REPO))] + argv
-        + ["-output", str(tmp_path / "out.hist")],
-        env=env, capture_output=True, text=True, timeout=300)
+        [sys.executable, "-c", _PROBE.format(repo=str(REPO))] + argv,
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("NOJAX-OK")
     assert "chr1\t45\t45\t1986\t28.16" in proc.stderr
+    assert "COMPLETENESS:             0.97734" in proc.stderr
+    assert "chr1\t45\t45\t1986" in proc.stderr.splitlines()
+    assert (tmp_path / "out.dump").read_bytes().count(b"\n") == 1986
 
 
 def test_no_jax_import_in_sources():
