@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA card: python3 chip_smoke.py
 
-Drives merfin_tpu_torch's main paths (-hist, -completeness, -dump) end
-to end on the GPU and checks them, phase by phase (any failure exits
-non-zero with its traceback):
+Drives merfin_tpu_torch's main paths (-hist, -completeness, -dump and
+the variant modes) end to end on the GPU and checks them, phase by phase
+(any failure exits non-zero with its traceback):
 
   1. device   nvidia-smi name/power limit, torch/CUDA versions; requires
               compute capability (9, 0);
@@ -14,7 +14,9 @@ non-zero with its traceback):
               median times of both taken in turns.  union_join: the full
               world's union table against one dispatch's sorted
               2^20-window query stream with hits, misses and sentinels, a
-              ragged length, a k=20 table with palindromes.  sorted_join
+              ragged length, a k=20 table with palindromes, and (timed)
+              the sorted 2^23-window stream of a phase-8 heavy cluster's
+              first span, as the fused variant scorer probes it.  sorted_join
               and window_join: the full world's asm table against one
               2^22 block of sorted read-DB keys (the completeness
               dispatch), a v1-ratio table of 2^21 keys against 2^20
@@ -29,7 +31,9 @@ non-zero with its traceback):
               and -dump on the recipe and -prob worlds are held to
               refmodel's completeness_mode and dump_mode (rows byte for
               byte), and run_completeness on a v1 table gives the CLI's
-              lines;
+              lines.  The variant modes (each mode, and -polish on the
+              host scorer) on both worlds equal the port's CPU run byte
+              for byte; the recipe world gives its 3 true corrections;
   5. full     a synthetic 64 Mbp assembly (4 large scaffolds, 2,000
               contigs of 1-20 kb, N gaps, 2,000 substitutions; k=21,
               peak 30) against a read DB of the true genome's k-mers at
@@ -46,7 +50,17 @@ non-zero with its traceback):
               whole union table on the card) for one scaffold and the
               2,000 contigs: per-sequence missing/kasm against the
               independent count, the row count, union_join launches,
-              wall and bases/s.
+              wall and bases/s;
+  8. variants full   -polish, -filter and -better (fused device scorer)
+              through the CLI against the full world's DBs, on a VCF of
+              the world's true corrections, 2,000 spurious SNPs, 1,000
+              spurious 1/2 sites and 4 heavy clusters of 165,888 paths:
+              the records against the independent list from the world's
+              arrays; -polish on the VCF without the heavy clusters,
+              with the fused scorer and with the host scorer
+              (-nodevscore, union join), each byte-identical to the
+              first run; records, clusters/s, union_join launches, wall
+              and its split.
 
 The world is made from --seed with numpy; databases are written with the
 shared KmerDB.create.  The last three stdout lines are a JSON object of
@@ -56,7 +70,7 @@ main path's shape), the card's `nvidia-smi --query-gpu=name,power.limit`
 line, and {"ok": true, "device": {...}}.
 
 Without CUDA the script fails (exit 1) and prints no result.  Phases 4
-to 7 also run on the CPU at a tiny size in tests/test_torch_hist.py
+to 8 also run on the CPU at a tiny size in tests/test_torch_hist.py
 (``MERFIN_PLATFORM=cpu``), which checks this harness without a card.
 """
 
@@ -104,18 +118,23 @@ def _revcomp(s: str) -> str:
     return s.translate(_COMP)[::-1]
 
 
+ALT_OF = {"A": "C", "C": "G", "G": "T", "T": "A"}
+
+
 def recipe_world() -> dict:
-    """The world of .claude/skills/verify/SKILL.md (k=15, peak 20)."""
+    """The world of .claude/skills/verify/SKILL.md (k=15, peak 20), with
+    its VCF: the three true corrections and a spurious call at 600."""
     import random
 
     random.seed(5)
-    alt = {"A": "C", "C": "G", "G": "T", "T": "A"}
     g = "".join(random.choice("ACGT") for _ in range(2000))
     asm = list(g)
     for p in (300, 900, 1500):
-        asm[p] = alt[asm[p]]
+        asm[p] = ALT_OF[asm[p]]
+    vcf = [("chr1", p, asm[p], g[p], "33.3", "1/1") for p in (300, 900, 1500)]
+    vcf.append(("chr1", 599, asm[599], ALT_OF[asm[599]], "9.9", "1/1"))
     return dict(k=15, peak=20.0, scaffolds=[("chr1", "".join(asm))],
-                reads=[g] * 20, prob=None)
+                reads=[g] * 20, prob=None, vcf=sorted(vcf, key=lambda r: r[1]))
 
 
 def parity_world(seed: int, total_bases: int, k: int = 21,
@@ -147,9 +166,11 @@ def parity_world(seed: int, total_bases: int, k: int = 21,
         true_long = body[:at] + "A" * k + body[at + len(run):]
     # assembly errors: substitutions the reads do not carry
     asm = bytearray(body.encode())
+    subs = []
     for p in rng.choice(np.arange(100, long_len - 100), size=30, replace=False):
         if asm[p] in b"ACGT" and (not repeat or not at <= p < at + repeat + k):
             asm[p] = b"CGTA"[b"ACGT".index(asm[p])]
+            subs.append(int(p))
     scaffolds = [("chrL", asm.decode())] + [
         (f"scaf{i}", s) for i, s in enumerate(shorts)]
     reads = [true_long] + shorts
@@ -157,7 +178,53 @@ def parity_world(seed: int, total_bases: int, k: int = 21,
         reads += [true_long[: int(len(true_long) * frac)]] * cov
     reads.append(_dna(rng, 5_000))
     prob = "1,0.931\n1,0.871\n2,0.773\n2,0.597\n3,0.401\n"
-    return dict(k=k, peak=2.0, scaffolds=scaffolds, reads=reads, prob=prob)
+    vcf = None if repeat else parity_vcf(rng, scaffolds, true_long, subs)
+    return dict(k=k, peak=2.0, scaffolds=scaffolds, reads=reads, prob=prob,
+                vcf=vcf)
+
+
+def parity_vcf(rng, scaffolds, true_long: str, subs) -> list:
+    """VCF rows for a parity world: the true corrections of chrL, and
+    spurious calls (SNPs, 1/2 multiallelic sites, 3-base deletions,
+    1-base insertions, 0/1 sites) on chrL and on ten short scaffolds,
+    some close enough to a correction to share its cluster."""
+    name, asm = scaffolds[0]
+    rows = [(name, p, asm[p], true_long[p], "40.7", "1/1") for p in subs]
+    kinds = ["snp"] * 10 + ["multi"] * 3 + ["del"] * 3 + ["ins"] * 3 + ["het"] * 2
+    spots = [(name, int(p)) for p in rng.choice(
+        np.arange(50, len(asm) - 50), size=len(kinds), replace=False)]
+    spots += [(n, int(rng.integers(10, len(s) - 10)))
+              for n, s in scaffolds[1:11]]
+    kinds += ["snp"] * 10
+    seqs = dict(scaffolds)
+    for (chrom, p), kind in zip(spots, kinds):
+        s = seqs[chrom]
+        if "N" in s[p: p + 3]:
+            continue
+        b = s[p]
+        if kind == "multi":
+            rows.append((chrom, p, b, f"{ALT_OF[b]},{ALT_OF[ALT_OF[b]]}",
+                         "17.2", "1/2"))
+        elif kind == "del":
+            rows.append((chrom, p, s[p: p + 3], b, "12.5", "1/1"))
+        elif kind == "ins":
+            rows.append((chrom, p, b, b + "ACGT"[int(rng.integers(4))],
+                         "8.0", "1/1"))
+        else:
+            rows.append((chrom, p, b, ALT_OF[b], "21.9",
+                         "0/1" if kind == "het" else "1/1"))
+    order = {n: i for i, (n, _) in enumerate(scaffolds)}
+    return sorted(rows, key=lambda r: (order[r[0]], r[1]))
+
+
+def write_vcf(path: str, contigs, rows) -> None:
+    """A VCF of ``rows`` (chrom, 0-based pos, REF, ALT, QUAL, GT)."""
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n")
+        f.writelines(f"##contig=<ID={c}>\n" for c in contigs)
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tS\n")
+        f.writelines(f"{c}\t{p + 1}\t.\t{ref}\t{alt}\t{q}\tPASS\t.\tGT\t{gt}\n"
+                     for c, p, ref, alt, q, gt in rows)
 
 
 def canonical_counts(code_arrays, k: int):
@@ -200,6 +267,9 @@ def materialize(world: dict, d: str) -> list[str]:
         with open(prob, "w") as f:
             f.write(world["prob"])
         argv += ["-prob", prob]
+    if world.get("vcf"):
+        write_vcf(os.path.join(d, "calls.vcf"),
+                  [n for n, _ in world["scaffolds"]], world["vcf"])
     return argv
 
 
@@ -240,6 +310,12 @@ def mode_argv(argv: list[str], mode: str) -> list[str]:
         at = out.index("-sequence")
         del out[at: at + 2]
     return out
+
+
+def vcf_argv(argv: list[str], mode: str) -> list[str]:
+    """materialize()'s -hist argv for a variant mode, with its calls.vcf."""
+    d = os.path.dirname(argv[argv.index("-sequence") + 1])
+    return mode_argv(argv, mode) + ["-vcf", os.path.join(d, "calls.vcf")]
 
 
 def _read_output(cwd: str, out: str) -> bytes:
@@ -299,22 +375,64 @@ class StampedLog(io.StringIO):
         return super().write(s)
 
 
+class _Switch(io.TextIOBase):
+    """The stderr of every in-process CLI run.  A module first imported
+    during one run binds it (as a ``log=sys.stderr`` default), so it
+    writes to the current run's capture, not to the first run's."""
+
+    def __init__(self):
+        super().__init__()
+        self.f = sys.__stderr__
+
+    def write(self, s):
+        return self.f.write(s)
+
+    def flush(self):
+        self.f.flush()
+
+
+_STDERR = _Switch()
+
+
+@contextlib.contextmanager
+def platform_env(platform: str | None):
+    """MERFIN_PLATFORM set to ``platform`` inside the block (None: as it
+    is)."""
+    saved = os.environ.get("MERFIN_PLATFORM")
+    if platform is not None:
+        os.environ["MERFIN_PLATFORM"] = platform
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("MERFIN_PLATFORM", None)
+        else:
+            os.environ["MERFIN_PLATFORM"] = saved
+
+
 def run_port_inprocess(argv, cwd: str, err: io.StringIO | None = None,
-                       out: str = "out.hist"):
-    """The port's CLI entry point in this process (the device comes from
-    MERFIN_PLATFORM) -> (output bytes, stderr text, counters; {} when the
+                       out: str = "out.hist", output: str | None = None,
+                       platform: str | None = None):
+    """The port's CLI entry point in this process on ``platform`` (default:
+    MERFIN_PLATFORM's), run with ``-output out`` -> (bytes of the file
+    ``output`` (default: ``out``), stderr text, counters; {} when the
     mode makes no engine)."""
     from merfin_tpu_torch.cli import main
 
     os.makedirs(cwd, exist_ok=True)
     err = io.StringIO() if err is None else err
-    with contextlib.chdir(cwd), recording_engines() as made, \
-            contextlib.redirect_stderr(err):
-        rc = main(argv + ["-output", out])
+    prev, _STDERR.f = _STDERR.f, err
+    try:
+        with platform_env(platform), contextlib.chdir(cwd), \
+                recording_engines() as made, \
+                contextlib.redirect_stderr(_STDERR):
+            rc = main(argv + ["-output", out])
+    finally:
+        _STDERR.f = prev
     if rc != 0:
         raise RuntimeError(f"port CLI failed:\n{err.getvalue()}")
     counters = {c: getattr(made[-1], c) for c in COUNTERS} if made else {}
-    return _read_output(cwd, out), err.getvalue(), counters
+    return _read_output(cwd, output or out), err.getvalue(), counters
 
 
 # ---------------------------------------------------------------- oracle
@@ -502,6 +620,69 @@ def check_small_modes(tmp: str, seed: int, bases: int, platform: str) -> None:
             f"({time.perf_counter() - t0:.1f} s)")
 
 
+VARIANT_MODES = ("polish", "filter", "better", "strict", "loose")
+
+
+def variant_runs(argv: list[str]) -> list:
+    """(tag, argv) of every variant mode at -threads 1, and -polish with
+    the host scorer (-nodevscore)."""
+    runs = [(m, vcf_argv(argv, m) + ["-threads", "1"]) for m in VARIANT_MODES]
+    runs.append(("polish_host", vcf_argv(argv, "polish")
+                 + ["-nodevscore", "-threads", "1"]))
+    return runs
+
+
+def variant_vcf(argv: list[str], out: str = "out") -> str:
+    """The VCF a variant mode writes for ``-output out``."""
+    return f"{out}.{'polish' if argv[0] == '-polish' else 'filter'}.vcf"
+
+
+def vcf_records(vcf: bytes) -> int:
+    """Records (non-header lines) of a VCF."""
+    return sum(1 for ln in vcf.splitlines() if not ln.startswith(b"#"))
+
+
+def check_small_variants(tmp: str, seed: int, bases: int,
+                         platform: str) -> None:
+    """Phase 4, the variant modes: the recipe world and the -prob world
+    through the CLI on ``platform``, every mode and -polish -nodevscore.
+    On CUDA each run's VCF and stderr equal the same run's on the CPU
+    (MERFIN_PLATFORM=cpu, in this process) byte for byte.  The recipe world gives exactly its three
+    true corrections (-polish and -better as 1/1 records with int-cast
+    quals; -filter replays the original records) and never the spurious
+    call."""
+    worlds = {"recipe": recipe_world(), "parity": parity_world(seed, bases)}
+    for name, world in worlds.items():
+        t0 = time.perf_counter()
+        d = os.path.join(tmp, name)
+        argv = materialize(world, d)
+        got = {}
+        for tag, run in variant_runs(argv):
+            got[tag] = run_port_inprocess(
+                run, os.path.join(d, f"var-{platform}", tag), out="out",
+                output=variant_vcf(run))[:2]
+            if platform == "cuda":
+                want = run_port_inprocess(
+                    run, os.path.join(d, "var-cpu", tag), out="out",
+                    output=variant_vcf(run), platform="cpu")[:2]
+                assert got[tag] == want, (name, tag, got[tag][1][-500:])
+        n_rec = {tag: vcf_records(vcf) for tag, (vcf, _) in got.items()}
+        if name == "recipe":
+            fixes = [(p, r, a) for _, p, r, a, q, _ in world["vcf"]
+                     if q == "33.3"]
+            hom = "".join(f"chr1\t{p + 1}\t.\t{r}\t{a}\t33\tPASS\t.\tGT\t1/1\n"
+                          for p, r, a in fixes).encode()
+            assert got["polish"][0].endswith(b"\tS\n" + hom)
+            assert got["polish_host"][0] == got["polish"][0]
+            assert got["better"][0].endswith(b"\tS\n" + hom)
+            assert got["filter"][0].endswith(
+                hom.replace(b"\t33\t", b"\t33.3\t"))
+            assert n_rec["polish"] == n_rec["filter"] == 3, n_rec
+        say(f"  {name}: variant modes, records {n_rec}"
+            f"{', equal to the CPU run byte for byte' if platform == 'cuda' else ''}"
+            f" ({time.perf_counter() - t0:.1f} s)")
+
+
 def _mkdir(d: str) -> str:
     os.makedirs(d, exist_ok=True)
     return d
@@ -633,7 +814,174 @@ def full_world(d: str, seed: int, mbp: float, n_error: int, device,
                 peak=peak, dump_fasta=dump_fasta,
                 dump_bases=int(lens[dump_ids].sum()),
                 dump_seqs=[(names[i], int(seq_kasm[i]), int(seq_kmissing[i]))
-                           for i in dump_ids])
+                           for i in dump_ids],
+                asm=asm, true=true, subs=pos, starts=starts, names=names,
+                read_max=int(vals.max()))
+
+
+# ------------------------------------------------------ variant world
+
+HEAVY_CLUSTERS = 4        # phase 8's heavy clusters, on scaffold 0
+HEAVY_SPACING = 8         # bases between a heavy cluster's variants
+
+
+def variant_plan(w: dict, d: str, seed: int, heavy_vars: int = 15) -> dict:
+    """Phase 8's VCFs, from the full world's own ``asm``/``true`` arrays:
+
+    * the true corrections (REF = asm base, ALT = true base, QUAL 30), but
+      none that an N gap overwrote or that no N-free window covers;
+    * spurious SNPs (2,000 at 64 Mbp) and 1/2 sites (1,000), each at
+      least 3k from any substitution, N, sequence end and other site;
+    * HEAVY_CLUSTERS heavy clusters of ``heavy_vars`` variants at
+      HEAVY_SPACING, in bench.py's SNP / SNP / 1/2 site / insertion
+      cycle (the first kind spurious here): at 15 variants each has
+      2^11 x 3^4 = 165,888 candidate paths.
+
+    Writes ``calls.vcf`` (everything) and ``light.vcf`` (no heavy
+    clusters) under ``d``; returns their paths, the heavy clusters, the
+    cluster counts and the expected -polish/-better and -filter
+    records (independent of the port: from the world's arrays alone)."""
+    k, asm, starts, names = w["k"], w["asm"], w["starts"], w["names"]
+    rng = np.random.default_rng(seed + 8)
+    m = 3 * k
+    bad = asm == 4
+    bad[w["subs"]] = True
+    bad[starts[:-1]] = True
+    bad[starts[1:] - 1] = True
+    base_at, heavy = [], []
+    span = heavy_vars * HEAVY_SPACING
+    cum = np.concatenate([[0], np.cumsum(bad, dtype=np.int64)])
+
+    def clear(lo, hi):
+        return cum[np.minimum(hi, asm.size)] - cum[np.maximum(lo, 0)] == 0
+
+    for i in range(HEAVY_CLUSTERS):
+        b = int(starts[0] + (starts[1] - starts[0]) * (i + 1)
+                // (HEAVY_CLUSTERS + 1))
+        while not clear(b - m, b + span + m):
+            b += 997
+        base_at.append(b)
+    for b in base_at:
+        bad[b: b + span] = True
+    cum = np.concatenate([[0], np.cumsum(bad, dtype=np.int64)])
+    scale = asm.size / 64e6
+    n_snp, n_multi = max(20, round(2000 * scale)), max(10, round(1000 * scale))
+    cand = np.sort(rng.choice(asm.size, size=8 * (n_snp + n_multi),
+                              replace=False))
+    cand = cand[clear(cand - m, cand + m + 1)]
+    sites, last = [], -(1 << 62)
+    for p in cand.tolist():
+        if p - last > 2 * m:
+            sites.append(p)
+            last = p
+    assert len(sites) >= n_snp + n_multi, (len(sites), n_snp + n_multi)
+    sites = rng.permutation(np.asarray(sites))[: n_snp + n_multi]
+
+    def where(p):
+        i = int(np.searchsorted(starts, p, side="right")) - 1
+        return i, names[i], int(p - starts[i])
+
+    base = "ACGT"
+    light = []                    # (seq index, row)
+    fixes = []
+    n_cum = np.concatenate([[0], np.cumsum(asm == 4, dtype=np.int64)])
+    for p in np.sort(w["subs"]).tolist():
+        i, chrom, loc = where(p)
+        lo = np.arange(max(p - k + 1, int(starts[i])),
+                       min(p, int(starts[i + 1]) - k) + 1)
+        if asm[p] == 4 or not (n_cum[lo + k] == n_cum[lo]).any():
+            continue
+        row = (chrom, loc, base[asm[p]], base[w["true"][p]], "30", "1/1")
+        light.append((i, row))
+        fixes.append(row)
+    for j, p in enumerate(sites.tolist()):
+        i, chrom, loc = where(p)
+        ref = base[asm[p]]
+        alt = ALT_OF[ref] if j < n_snp else f"{ALT_OF[ref]},{ALT_OF[ALT_OF[ref]]}"
+        light.append((i, (chrom, loc, ref, alt, "30",
+                          "1/1" if j < n_snp else "1/2")))
+    heavy_rows = []
+    for b in base_at:
+        i, chrom, loc0 = where(b)
+        cl = []
+        for v in range(heavy_vars):
+            p = b + v * HEAVY_SPACING
+            ref = base[asm[p]]
+            kind = v % 4
+            if kind in (0, 1):
+                haps, gt = [ref, ALT_OF[ref]], "1/1"
+            elif kind == 2:
+                haps, gt = [ref, ALT_OF[ref], ALT_OF[ALT_OF[ref]]], "1/2"
+            else:
+                haps, gt = [ref, ref + base[int(rng.integers(4))]], "1/1"
+            cl.append((chrom, loc0 + v * HEAVY_SPACING, ref, ",".join(haps[1:]),
+                       "30", gt, haps))
+        heavy.append((i, cl))
+        heavy_rows += [(i, r[:6]) for r in cl]
+
+    def key(e):
+        return e[0], e[1][1]
+
+    contigs = list(names)
+    paths = {}
+    for tag, rows in (("calls", light + heavy_rows), ("light", light)):
+        paths[tag] = os.path.join(d, f"{tag}.vcf")
+        write_vcf(paths[tag], contigs, [r for _, r in sorted(rows, key=key)])
+    with open(paths["calls"], "rb") as f:
+        header = b"".join(ln for ln in f if ln.startswith(b"#"))
+    hom = "".join(f"{c}\t{p + 1}\t.\t{r}\t{a}\t30\tPASS\t.\tGT\t1/1\n"
+                  for c, p, r, a, _, _ in fixes).encode()
+    return dict(vcf=paths["calls"], light_vcf=paths["light"], heavy=heavy,
+                n_fixes=len(fixes), n_snp=n_snp, n_multi=n_multi,
+                n_variants=len(light) + len(heavy_rows),
+                polish=header + hom,
+                filter=header + hom.replace(b"\t30\t", b"\t30.0\t"),
+                heavy_paths=2 ** sum(1 for v in range(heavy_vars) if v % 4 != 2)
+                * 3 ** sum(1 for v in range(heavy_vars) if v % 4 == 2))
+
+
+def heavy_span(w: dict, plan: dict, windows: int = 1 << 23):
+    """The first ``windows``-window span of the first heavy cluster:
+    (its sorted query stream as the fused scorer's device program makes
+    it: canonical mers, u64::MAX for invalid windows and the padding;
+    the span's _pack_inputs; the cluster's path count; the span's
+    window count)."""
+    from merfin_tpu.kcore.pack import kmers_from_codes_np
+    from merfin_tpu.variants.enumerate_fast import build_path_block_fast
+    from merfin_tpu_torch.variants.device_score import (_pack_inputs,
+                                                        split_spans)
+
+    k = w["k"]
+    i, cl = plan["heavy"][0]
+    seq = _ACGT[w["asm"][w["starts"][i]: w["starts"][i + 1]]].tobytes().decode()
+    lo = cl[0][1] - (k - 1)
+    hi = cl[-1][1] + len(cl[-1][2]) + (k - 1)
+    block = build_path_block_fast(seq[lo:hi], [r[1] - lo for r in cl],
+                                  [len(r[2]) for r in cl],
+                                  [r[6] for r in cl], k)
+    i, j, a, b = split_spans(block.starts, block.nis.shape[0], windows)[0]
+    fmer, rmer, valid = kmers_from_codes_np(block.stream[a:b], k)
+    q = np.full(windows, np.uint64(2**64 - 1))
+    q[: fmer.size] = np.where(valid, np.minimum(fmer, rmer),
+                              np.uint64(2**64 - 1))
+    packed = _pack_inputs(block.stream[a:b], block.adjust[a:b],
+                          block.starts[i: j + 1] - a, block.nis[i:j], k)
+    return np.sort(q), packed, int(block.nis.shape[0]), int(fmer.size)
+
+
+def time_span_program(table, w: dict, packed, reps: int) -> float:
+    """Median ms of the fused scorer's device program on one packed span
+    (inputs already on the card; CUDA events around each run)."""
+    import torch
+
+    from merfin_tpu_torch.variants.device_score import DeviceScorer
+
+    scorer = DeviceScorer(table, w["k"], w["peak"], None,
+                          max_value=int(w["read_max"]), exact_max=True)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(table.device)
+            for x in packed[2:]]
+    scorer._score_stream(packed[0], *args)       # warm up
+    return _median_ms(lambda: scorer._score_stream(packed[0], *args), reps)
 
 
 # ------------------------------------------------------- kernel vs plain
@@ -896,6 +1244,19 @@ def main() -> int:
                 f"{smi})")
             err2, *_ = check_kernel(table, q[: (1 << 20) - 77], 0)
             say("  ragged length 2^20-77: bit-exact")
+            plan = variant_plan(w, os.path.join(tmp, "full"), args.seed)
+            qv, packed, n_paths, n_win = heavy_span(w, plan)
+            err4, kv_ms, pv_ms, hits = check_kernel(table, qv, args.reps)
+            say(f"  variant span: the first 2^23-window span of a heavy "
+                f"cluster ({n_paths} paths; {n_win} windows in the span, "
+                f"{np.unique(qv).size} distinct queries, {hits} hits): "
+                f"bit-exact; kernel {kv_ms:.4f} ms, plain {pv_ms:.4f} ms "
+                f"(median of {args.reps}; {smi})")
+            span_ms = time_span_program(table, w, packed, args.reps)
+            say(f"  fused scorer program on that span (unpack to boundary "
+                f"reduce, inputs on the card): {span_ms:.4f} ms, union_join "
+                f"{100 * kv_ms / span_ms:.1f}% of it (median of "
+                f"{args.reps}; {smi})")
             del table
             tabs, qp = palindrome_table(rng)
             ptable = UnionTable.from_dbs(*tabs, "cuda")
@@ -904,13 +1265,14 @@ def main() -> int:
             del ptable
             torch.cuda.empty_cache()
             report[union_join_kernel.name] = dict(
-                max_abs_err=max(err, err2, err3), ms=k_ms, plain_ms=p_ms)
+                max_abs_err=max(err, err2, err3, err4), ms=k_ms, plain_ms=p_ms)
             report.update(check_single_kernels(adb, rdb, rng, args.reps))
 
         with phase("4 oracle"):
             check_small_worlds(tmp, args.seed, args.small_bases, args.repeat,
                                "cuda")
             check_small_modes(tmp, args.seed, args.small_bases, "cuda")
+            check_small_variants(tmp, args.seed, args.small_bases, "cuda")
 
         # each main path runs with the launch counts set to 0 just before
         # it and read just after; a kernel reports the sum over its paths
@@ -925,6 +1287,10 @@ def main() -> int:
         with phase("7 dump full"):
             launches[union_join_kernel.name] += _run_dump_full(
                 w, os.path.join(tmp, "full", "dump"))
+
+        with phase("8 variants full"):
+            launches[union_join_kernel.name] += _run_variants_full(
+                w, plan, os.path.join(tmp, "full", "variants"))
 
     print(json.dumps({"kernels": [{
         "name": kern.name, "route": "cuda", "source": kern.source,
@@ -1131,6 +1497,121 @@ def _run_dump_full(w: dict, cwd: str) -> int:
         f"({len(got)} sequences, {n_rows} rows, {len(rows)} bytes, "
         f"missing {cum_mis}): {w['dump_bases'] / wall:.0f} bases/s; "
         f"union_join launches {launches}")
+    return launches
+
+
+@contextlib.contextmanager
+def variant_timers():
+    """Main-thread seconds of the variant driver's steps: stream assembly,
+    packing and launch (``dispatch_blocks``), the fetch (device wait and
+    copy, ``fetch_blocks``) and selection (``_select_block_task``); the
+    rest of the loop waits for enumeration (build thread, pool)."""
+    import merfin_tpu_torch.modes.variants as mv
+
+    spent = dict.fromkeys(("dispatch", "fetch", "select"), 0.0)
+    names = {"dispatch": "dispatch_blocks", "fetch": "fetch_blocks",
+             "select": "_select_block_task"}
+    saved = {key: getattr(mv, fn) for key, fn in names.items()}
+
+    def timed(key):
+        fn = saved[key]
+
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return run
+
+    for key, fn in names.items():
+        setattr(mv, fn, timed(key))
+    try:
+        yield spent
+    finally:
+        for key, fn in names.items():
+            setattr(mv, fn, saved[key])
+
+
+def _run_variants_full(w: dict, plan: dict, cwd: str,
+                       threads: int | None = None) -> int:
+    """Phase 8: the variant modes through the CLI on the full world's
+    DBs (the whole union table on the device).
+
+    * -polish (fused scorer): exactly the planned true corrections, as
+      1/1 records with int-cast QUAL, and nothing from a spurious site or
+      a heavy cluster (their REF paths miss no k-mer);
+    * -filter: the same corrections as their original records (QUAL
+      %.1f); a spurious site's REF path misses nothing, so it is dropped;
+    * -better: the same records as -polish (each correction's ALT path
+      misses fewer k-mers than REF; no spurious path does);
+    * -polish on light.vcf (no heavy clusters), once with the fused
+      scorer (the default) and once with the host scorer (-nodevscore):
+      each byte-identical to the fused -polish output on calls.vcf, and
+      the two variant-loop times side by side.
+
+    Reports records, clusters/s, the wall and its split; returns the
+    union_join launches of these runs."""
+    import torch
+
+    from merfin_tpu_torch.ops.union_join import union_join_kernel
+
+    on_card = _on_card()
+    argv = mode_argv(w["argv"], "polish")
+    extra = ["-threads", str(threads)] if threads else []
+    marks = ("-- Loading kmers", "-- Opening vcf", "-- Generate variant",
+             "Processing sequence", "Bye!")
+    launches = 0
+    outs, loops = {}, {}
+    for tag, mode, vcf, flags in (
+            ("polish", "polish", plan["vcf"], []),
+            ("filter", "filter", plan["vcf"], []),
+            ("better", "better", plan["vcf"], []),
+            ("polish_light", "polish", plan["light_vcf"], []),
+            ("polish_host", "polish", plan["light_vcf"], ["-nodevscore"])):
+        run = mode_argv(argv, mode) + ["-vcf", vcf] + flags + extra
+        log = StampedLog(marks)
+        union_join_kernel.launches = 0
+        with variant_timers() as spent:
+            outs[tag], err, _ = run_port_inprocess(
+                run, os.path.join(cwd, tag), log, out="out",
+                output=variant_vcf(run))
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - log.t0
+        launches += union_join_kernel.launches
+        clusters = sum(int(ln.split(" down to ")[1].split()[0])
+                       for ln in err.splitlines() if " down to " in ln)
+        n_rec = vcf_records(outs[tag])
+        if on_card:
+            assert union_join_kernel.launches > 0, tag
+        t = {m: log.stamps[m] for m in marks}
+        loop = loops[tag] = t["Bye!"] - t["Processing sequence"]
+        rest = loop - sum(spent.values())
+        say(f"  {tag}: {n_rec} records, {clusters} clusters in {wall:.1f} s "
+            f"({clusters / wall:.1f} clusters/s; {clusters / loop:.1f} in "
+            f"the variant loop); union_join launches "
+            f"{union_join_kernel.launches}")
+        say(f"    split: DB load {t['-- Opening vcf'] - t['-- Loading kmers']:.1f}"
+            f" s, VCF + clusters {t['-- Generate variant'] - t['-- Opening vcf']:.1f}"
+            f" s, union table build+upload (and scorer) "
+            f"{t['Processing sequence'] - t['-- Generate variant']:.1f} s, "
+            f"variant loop {loop:.1f} s (main thread: dispatch "
+            f"{spent['dispatch']:.1f}, fetch/device wait "
+            f"{spent['fetch']:.1f}, selection {spent['select']:.1f}, "
+            f"enumeration wait + host scoring {rest:.1f})")
+    assert outs["polish"] == plan["polish"], outs["polish"][-500:]
+    assert outs["filter"] == plan["filter"], outs["filter"][-500:]
+    assert outs["better"] == plan["polish"], outs["better"][-500:]
+    assert outs["polish_light"] == outs["polish_host"] == outs["polish"]
+    say(f"  light.vcf variant loop: fused scorer {loops['polish_light']:.3f}"
+        f" s, host scorer {loops['polish_host']:.3f} s")
+    say(f"  -polish/-better: exactly the {plan['n_fixes']} true corrections; "
+        f"-filter: their original records; fused and host scorers on "
+        f"light.vcf: byte-identical to that -polish; {plan['n_variants']} "
+        f"variants ({plan['n_snp']} spurious SNPs, {plan['n_multi']} 1/2 "
+        f"sites, {len(plan['heavy'])} heavy clusters of "
+        f"{plan['heavy_paths']} paths)")
     return launches
 
 

@@ -8,8 +8,11 @@ by swapping the binary name:
                      -seqmers asm.mkdb -peak 106.7 -output out.hist
 
 -hist and -dump run on the union sorted join (``-sortjoin`` is accepted),
--completeness on the single-value sorted join.  What is not ported yet
-(the variant modes, -mesh, -hist -nosortjoin, a multi-host launch,
+-completeness on the single-value sorted join.  The variant modes
+(-filter, -polish, -better, -strict, -loose) score candidate paths with
+the fused device scorer or, for -debug, -nodevscore and -polish with a
+-prob table, with the shared host scorer; both probe the union join.
+What is not ported yet (-mesh, -hist -nosortjoin, a multi-host launch,
 building the sequence DB when -seqmers is absent, the database tools)
 exits with code 1 and a one-line error.  The device comes from
 MERFIN_PLATFORM: ``cuda`` (default) or ``cpu``.
@@ -132,12 +135,30 @@ def _usage() -> None:
         "         -output   <output>        \n"
         "\n"
         "  The PyTorch/CUDA port of merfin-tpu.  It accepts merfin-tpu's flags;\n"
-        "  -hist, -dump and -completeness run (on the sorted-join kernels;\n"
-        "  -sortjoin is accepted), -resume restarts -hist and -dump at a\n"
-        "  sequence boundary.  The variant modes (-filter, -polish, -better,\n"
-        "  -strict, -loose), -mesh, -hist -nosortjoin, multi-host launches,\n"
-        "  building <seq.mkdb> (-seqmers absent) and the database tools are not\n"
-        "  yet ported: use merfin-tpu for them.\n"
+        "  -hist, -dump, -completeness and the variant modes run (on the\n"
+        "  sorted-join kernels; -sortjoin is accepted), -resume restarts -hist,\n"
+        "  -dump and the variant modes at a sequence boundary.  -mesh,\n"
+        "  -hist -nosortjoin, multi-host launches, building <seq.mkdb> (-seqmers\n"
+        "  absent) and the database tools are not yet ported: use merfin-tpu\n"
+        "  for them.\n"
+        "\n"
+        "  -filter / -better / -strict / -loose / -polish\n"
+        "   Score the variant calls of <input.vcf> by the k-mers they create or\n"
+        "   remove.  -filter keeps the records that reduce missing k-mers\n"
+        "   (output <output>.filter.vcf); -polish writes the best path of each\n"
+        "   cluster as 1/1 (or 0/1, 1/2) records (<output>.polish.vcf); -better\n"
+        "   and -strict keep the best path only if it beats the reference, -loose\n"
+        "   also when it ties (both <output>.filter.vcf).\n"
+        "   Required: -sequence, -readmers, -seqmers, -peak (not for -filter),\n"
+        "             -vcf, and -output.\n"
+        "   Optional: -prob <file>, -min m / -max m, -memory m as for -hist\n"
+        "             -comb N          evaluate up to N variants together (default 15)\n"
+        "             -nosplit         do not split clusters of more than N variants\n"
+        "             -threads N       enumerate heavy clusters on N processes (0 = all cores)\n"
+        "             -debug           per-path scores to <output>.00.debug.gz\n"
+        "             -devscore / -nodevscore   fused device scoring (default: on,\n"
+        "                              except for -debug and for -polish with -prob)\n"
+        "             -resume          restart at the last finished sequence\n"
         "\n"
         "  -hist\n"
         "   Generate a 0-centered k* histogram for sequences in <input.fasta>.\n"
@@ -174,8 +195,6 @@ def _db_max(db) -> int:
 
 
 def _unported(cfg: MerfinConfig) -> str | None:
-    if cfg.report_type not in ("hist", "dump", "completeness"):
-        return f"-{cfg.report_type}"
     if cfg.mesh:
         return "-mesh"
     if cfg.report_type == "hist" and cfg.sortjoin is False:
@@ -268,13 +287,69 @@ def run(cfg: MerfinConfig) -> int:
         engine = make_engine()
         print("-- Using sorted-join lookup kernel for -hist.", file=log)
         run_hist(engine, seq_file, cfg.out_name, log=log, resume=cfg.resume)
-    else:
+    elif cfg.report_type == "dump":
         from merfin_tpu_torch.modes.dump import run_dump
 
         print(f"-- Dump per-base k* metric to '{cfg.out_name}'.", file=log)
         run_dump(make_engine(), seq_file, cfg.out_name,
                  skip_missing=cfg.skip_missing, log=log, resume=cfg.resume)
+    elif _run_variant_mode(cfg, k, read_db, read_lookup, asm_lookup, prob,
+                           seq_file, device, log) != 0:
+        return 1
     print("Bye!", file=log)
+    return 0
+
+
+def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
+                      asm_lookup, prob, seq_file, device, log) -> int:
+    """The variant modes, as the JAX CLI runs them on one device: the VCF
+    and its clusters, the devscore rule, then the fused device scorer or
+    the host scorer, both on one union table."""
+    from merfin_tpu.io.vcf import VcfFile
+    from merfin_tpu_torch.modes.variants import run_variants
+    from merfin_tpu_torch.ops.union_join import UnionTable, host_lookups
+    from merfin_tpu_torch.variants.device_score import DeviceScorer
+
+    print(f"-- Opening vcf file '{cfg.vcf_name}'.", file=log)
+    vcf = VcfFile(cfg.vcf_name, log=log)
+    print(f"Merge variants within {k}-mer bases, splitting combinations "
+          f"greater than {cfg.comb}.", file=log)
+    vcf.merge_clusters(k, cfg.comb, cfg.nosplit, log=log)
+
+    print("-- Generate variant mers and score them.", file=log)
+    # Fused device scoring is the default for the numM-only modes, and
+    # for -polish when its totdk sums are integers (no -prob table, and
+    # ValueMap.int_scorer_ok, checked below); -debug and -polish with a
+    # -prob table keep the host scorer.
+    use_dev = cfg.devscore
+    if use_dev is None:
+        use_dev = not cfg.debug and (
+            cfg.report_type != "polish" or prob is None)
+    elif use_dev and cfg.debug:
+        print("ERROR: -debug needs per-window K* stats; it cannot run "
+              "with -devscore.", file=log)
+        return 1
+    table = UnionTable.from_dbs(read_lookup.keys, read_lookup.vals,
+                                asm_lookup.keys, asm_lookup.vals, device)
+    scorer = None
+    if use_dev:
+        print("-- Using fused device scoring (-devscore).", file=log)
+        scorer = DeviceScorer(table, k, cfg.peak, prob,
+                              max_value=_db_max(read_db), exact_max=True)
+        if (cfg.report_type == "polish" and cfg.devscore is None
+                and not scorer.value_map.int_scorer_ok()):
+            print("-- Device scoring lacks the integer fast path "
+                  "here; using the host scorer for -polish.", file=log)
+            scorer = None
+    lookup_read, lookup_asm = host_lookups(table)
+    try:
+        run_variants(cfg.report_type, seq_file, vcf, k, lookup_read,
+                     lookup_asm, cfg.peak, prob, cfg.out_name, comb=cfg.comb,
+                     debug=cfg.debug, log=log, resume=cfg.resume,
+                     threads=cfg.threads, scorer=scorer)
+    finally:
+        if scorer is not None:
+            scorer.close()
     return 0
 
 

@@ -12,8 +12,12 @@
     hi/lo/value planes and ``keys_u64``) -> keys, the first n values;
   - ``SortJoinTableV4``'s ``rec``/``seg_first`` -> decode the 8 key and
     4 value byte planes of ``build_rec_np`` (join_kernel4.py:128-171).
+* A JAX ``DeviceScorer``'s union table (``_sj_union``, either form
+  above) -> the same three arrays.
 * The value map and the bin tables: the host arrays of the shared
-  ``ValueMap``/``BinTable`` as they are, placed on the device.
+  ``ValueMap``/``BinTable`` as they are, placed on the device; the
+  scorer flavour of the value map (``ValueMap.device_arrays_scorer``)
+  carries readK as int32 when the integer fast path holds.
 """
 
 from __future__ import annotations
@@ -87,6 +91,16 @@ def union_from_rec2(rec, seg_first=None, n: int | None = None):
     return decode_rec(rec, 2, seg_first, n)
 
 
+def union_from_device_scorer(scorer):
+    """A JAX ``DeviceScorer(..., sortjoin=True)``'s union table ->
+    (keys u64, read u32, asm u32)."""
+    u = scorer._sj_union
+    if hasattr(u, "rec"):                  # SortJoinUnionV4
+        return union_from_rec2(np.asarray(u.rec), np.asarray(u.seg_first),
+                               n=u.n)
+    return union_from_tree(u.tree())       # _JnpSortJoin2
+
+
 def single_from_rec(rec, seg_first=None, n: int | None = None):
     """``SortJoinTableV4`` records -> (keys u64, vals u32)."""
     return decode_rec(rec, 1, seg_first, n)
@@ -98,6 +112,16 @@ def value_map_tensors(value_map, device):
                 value_map.read_k_host, np.float64)).to(device),
             torch.from_numpy(np.ascontiguousarray(
                 value_map.prob_host, np.float64)).to(device))
+
+
+def value_map_scorer_tensors(value_map, device):
+    """(readK, prob f64) for the fused variant scorer: readK int32 when
+    ``value_map.int_scorer_ok()`` (the integer fast path), else f64."""
+    read_k, prob = value_map_tensors(value_map, device)
+    if value_map.int_scorer_ok():
+        read_k = torch.from_numpy(
+            value_map.read_k_host.astype(np.int32)).to(device)
+    return read_k, prob
 
 
 def bin_table_tensors(bin_table, device):

@@ -1,6 +1,7 @@
 """Card-only tests of the torch port (marker ``gpu``): each CUDA kernel
-(union_join, sorted_join, window_join) vs its plain version, and -hist,
--completeness and -dump on CUDA vs on the CPU.
+(union_join, sorted_join, window_join) vs its plain version, -hist,
+-completeness, -dump and the variant modes on CUDA vs on the CPU, and
+the fused variant scorer on CUDA vs on the CPU.
 
 They skip where torch.cuda.is_available() is false.  This file imports
 no JAX, so it runs on a machine with a card and no JAX:
@@ -125,3 +126,72 @@ def test_hist_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     want = cs.run_port_subprocess(argv, str(tmp_path), "cpu")
     assert got == want
     assert got[2]["bin_fallbacks"] > 0
+
+
+@pytest.mark.gpu
+def test_variant_modes_cuda_match_cpu(cuda, tmp_path, monkeypatch):
+    """Every variant mode and -polish on the host scorer, on the recipe
+    world and a k=21 -prob world: the same VCF and stderr on CUDA as in
+    a CPU process (chip_smoke's phase 4 check at another seed)."""
+    import chip_smoke as cs
+
+    monkeypatch.setenv("MERFIN_PLATFORM", "cuda")
+    cs.check_small_variants(str(tmp_path), 3, 60_000, "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_prob", [False, True])
+def test_device_scorer_cuda_matches_cpu(cuda, with_prob, tmp_path):
+    """The fused scorer on CUDA vs on the CPU over heavy-cluster blocks
+    split into several spans: num_m exactly, the integer totdk exactly,
+    the f64 totdk (sums in another order on CUDA) to 1e-9 relative; the
+    union join ran as the kernel."""
+    import chip_smoke as cs
+    from merfin_tpu.io.mkdb import KmerDB
+    from merfin_tpu.io.prob import load_prob_table
+    from merfin_tpu.variants.enumerate_fast import build_path_block_fast
+    from merfin_tpu.variants.score import dispatch_blocks
+    from merfin_tpu_torch.ops.union_join import UnionTable, union_join_kernel
+    from merfin_tpu_torch.variants.device_score import DeviceScorer
+
+    world = cs.parity_world(5, 60_000, k=21)
+    argv = cs.materialize(world, str(tmp_path))
+    rdb, adb = KmerDB(argv[4]), KmerDB(argv[6])
+    prob = load_prob_table(argv[argv.index("-prob") + 1]) if with_prob \
+        else None
+    asm = world["scaffolds"][0][1]
+    blocks = []
+    for base in range(1000, len(asm) - 200, 2500):
+        t = asm[base - 20: base + 100]
+        if "N" in t:
+            continue
+        idx = list(range(20, 84, 8))
+        haps = [[t[i], cs.ALT_OF[t[i]]] if j % 3 else
+                [t[i], cs.ALT_OF[t[i]], cs.ALT_OF[cs.ALT_OF[t[i]]]]
+                for j, i in enumerate(idx)]
+        blocks.append(build_path_block_fast(t, idx, [1] * len(idx), haps, 21))
+
+    class Capture:
+        def dispatch_paths(self, *args):
+            return args
+
+    stream = dispatch_blocks(blocks, Capture(), 21)[1]
+    out, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        table = UnionTable.from_dbs(rdb.keys, rdb.vals, adb.keys, adb.vals,
+                                    dev)
+        sc = DeviceScorer(table, 21, 2.0, prob, max_value=int(rdb.vals.max()),
+                          exact_max=True)
+        sc.MAX_WINDOWS = 1 << 16
+        before = union_join_kernel.launches
+        out[dev] = sc.score_paths(*stream)
+        torch.cuda.synchronize()
+        launched[dev] = union_join_kernel.launches - before
+    assert launched["cpu"] == 0 and launched["cuda"] > 1, launched
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    if with_prob:
+        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-9,
+                                   atol=0)
+    else:
+        assert out["cuda"][1].dtype == np.int64
+        np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])

@@ -115,18 +115,28 @@ def test_resume_continues_exactly(tmp_path):
 
 def test_chip_smoke_phases_on_cpu(tmp_path, monkeypatch):
     """chip_smoke.py's oracle and full-world phases at a tiny size on the
-    CPU: the small worlds match tests/refmodel.py; the full world's
-    -hist kasm/kmissing, -completeness totals and -dump per-sequence
-    counts match the independent numpy counts."""
+    CPU: the small worlds match tests/refmodel.py (and the recipe's
+    variant modes give its 3 corrections); the full world's -hist
+    kasm/kmissing, -completeness totals and -dump per-sequence counts
+    match the independent numpy counts, and the variant modes give the
+    planned records (heavy clusters of 576 paths, 3 pool workers)."""
     monkeypatch.setenv("MERFIN_PLATFORM", "cpu")
     cs.check_small_worlds(str(tmp_path), 0, 30_000, 40_000, "cpu")
     cs.check_small_modes(str(tmp_path), 0, 30_000, "cpu")
+    cs.check_small_variants(str(tmp_path), 0, 30_000, "cpu")
     w = cs.full_world(str(tmp_path / "full"), 0, 1.0, 1 << 18, "cpu")
     assert w["n_seqs"] > 4 and w["kmissing"] > 0
     assert cs._run_full(w, str(tmp_path / "full" / "run")) == 0
     assert cs._run_completeness_full(w, str(tmp_path / "full" / "c")) == {
         "sorted_join": 0, "window_join": 0}
     assert cs._run_dump_full(w, str(tmp_path / "full" / "d")) == 0
+    plan = cs.variant_plan(w, str(tmp_path / "full"), 0, heavy_vars=8)
+    assert plan["heavy_paths"] == 576 and plan["n_fixes"] > 1000
+    q, packed, n_paths, n_win = cs.heavy_span(w, plan, 1 << 16)
+    assert n_paths == 576 and q.size == 1 << 16 and (np.diff(q) >= 0).all()
+    assert packed[0] == 1 << 16 and n_win <= packed[0]
+    assert cs._run_variants_full(w, plan, str(tmp_path / "full" / "v"),
+                                 threads=3) == 0
 
 
 def test_group_and_stream_paths_agree(tmp_path):
@@ -161,7 +171,8 @@ def test_group_and_stream_paths_agree(tmp_path):
     (["-hist", "-nosortjoin"], {}),
     (["-hist"], {"MERFIN_NUM_PROCESSES": "2"}),
     (["-completeness"], {"MERFIN_NUM_PROCESSES": "2"}),
-    (["-filter", "-vcf", "x.vcf"], {}),
+    (["-polish", "-vcf", "x.vcf", "-mesh", "1x2"], {}),
+    (["-filter", "-vcf", "x.vcf"], {"MERFIN_NUM_PROCESSES": "2"}),
 ])
 def test_unported_paths_exit_1(extra, env, monkeypatch, capsys):
     from merfin_tpu_torch.cli import main

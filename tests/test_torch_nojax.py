@@ -1,6 +1,7 @@
 """The torch port never imports JAX: a fresh process imports every module
-of merfin_tpu_torch (and chip_smoke), runs a CPU -hist, -completeness and
--dump through the CLI, and finds no 'jax' in sys.modules."""
+of merfin_tpu_torch (and chip_smoke), runs a CPU -hist, -completeness,
+-dump, -polish (fused scorer and host scorer) and -filter through the
+CLI, and finds no 'jax' in sys.modules."""
 
 import os
 import pathlib
@@ -19,10 +20,14 @@ import merfin_tpu_torch, chip_smoke
 for m in pkgutil.walk_packages(merfin_tpu_torch.__path__, "merfin_tpu_torch."):
     importlib.import_module(m.name)
 from merfin_tpu_torch.cli import main
-argv = sys.argv[1:]
+argv = sys.argv[2:]
+vcf = ["-vcf", sys.argv[1], "-threads", "1"]
 for mode, out in (("-hist", "out.hist"), ("-completeness", "unused"),
-                  ("-dump", "out.dump")):
-    rc = main([mode] + argv + ["-output", out])
+                  ("-dump", "out.dump"), ("-polish", "fused"),
+                  ("-polish", "host"), ("-filter", "out")):
+    extra = vcf + (["-nodevscore"] if out == "host" else []) \
+        if mode in ("-polish", "-filter") else []
+    rc = main([mode] + argv + extra + ["-output", out])
     assert rc == 0, (mode, rc)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not bad, bad
@@ -35,7 +40,8 @@ def test_port_runs_without_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     env["MERFIN_PLATFORM"] = "cpu"
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(repo=str(REPO))] + argv,
+        [sys.executable, "-c", _PROBE.format(repo=str(REPO)),
+         str(tmp_path / "calls.vcf")] + argv,
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("NOJAX-OK")
@@ -43,6 +49,10 @@ def test_port_runs_without_jax(tmp_path):
     assert "COMPLETENESS:             0.97734" in proc.stderr
     assert "chr1\t45\t45\t1986" in proc.stderr.splitlines()
     assert (tmp_path / "out.dump").read_bytes().count(b"\n") == 1986
+    assert "-- Using fused device scoring (-devscore)." in proc.stderr
+    pol = [(tmp_path / f"{o}.polish.vcf").read_bytes() for o in ("fused", "host")]
+    assert pol[0] == pol[1] and cs.vcf_records(pol[0]) == 3
+    assert cs.vcf_records((tmp_path / "out.filter.vcf").read_bytes()) == 3
 
 
 def test_no_jax_import_in_sources():

@@ -1,0 +1,299 @@
+"""The variant modes end to end: the merfin_tpu_torch CLI on the CPU vs
+the JAX CLI (bin/merfin-tpu) on the CPU.
+
+Each package runs every case of a world in one process (batch_subprocess
+below, stderr captured per run).  The .vcf outputs, the decompressed -debug
+logs, the exit codes and stderr must be byte-identical.  Worlds:
+
+  * the verify recipe's (k=15, three true corrections, one spurious call);
+  * tests/test_variant_modes.py's (k=11, peak 30);
+  * a k=21 chip_parity-style world with a -prob table (-polish takes the
+    host scorer; -polish -devscore the f64 fused path);
+  * a het world (k=21): the reads hold both ALT alleles of a 1/2 site,
+    so two paths tie on missing k-mers and on totdk, and -polish writes
+    a 1/2 record;
+  * a heavy-cluster world as in bench.py:_bench_variants_heavy with
+    n_vars = 8 (576 paths a cluster), also at -threads 3 (spawned pool).
+
+The f64 fused path (-devscore with -prob) sums totdk in another order on
+CUDA and is held to the JAX scorer at 1e-9 relative in
+tests/test_torch_device_score.py; on these worlds no two paths come that
+close, so its CLI output is held to bytes here.
+"""
+
+import gzip
+import io
+import json
+import os
+import random
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import chip_smoke as cs
+from tests.util import random_dna
+
+HOST = ["-nodevscore"]
+
+
+_BATCH_RUN = """
+import contextlib, importlib, io, json, os, sys
+
+
+class Switch(io.TextIOBase):
+    # The stderr of every run, set before the CLI is imported: a module
+    # binds it as a log=sys.stderr default, so it writes to the current
+    # run's file.
+    f = sys.__stderr__
+
+    def write(self, s):
+        return self.f.write(s)
+
+    def flush(self):
+        self.f.flush()
+
+
+sys.stderr = switch = Switch()
+sys.path.insert(0, {repo!r})
+main = importlib.import_module("{pkg}.cli").main
+rcs = {{}}
+for tag, argv in json.loads(sys.argv[1]):
+    os.makedirs(tag)
+    with open(os.path.join(tag, "stderr"), "w") as f, contextlib.chdir(tag):
+        switch.f = f
+        try:
+            rcs[tag] = main(argv)
+        finally:
+            switch.f = sys.__stderr__
+print(json.dumps(rcs))
+"""
+
+
+def batch_subprocess(pkg: str, runs, cwd: str, env):
+    """Start one process that runs ``pkg``'s CLI once for each (tag, argv)
+    of ``runs``, each in its own directory ``cwd/tag`` with its stderr in
+    ``cwd/tag/stderr``; it prints {tag: exit code}."""
+    os.makedirs(cwd, exist_ok=True)
+    return subprocess.Popen(
+        [sys.executable, "-c", _BATCH_RUN.format(repo=cs.REPO, pkg=pkg),
+         json.dumps(runs)], cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def wait_batch(proc, cwd: str) -> dict:
+    """{tag: (exit code, stderr, {output file: bytes})} of a
+    batch_subprocess, once it has exited 0; .gz outputs are decompressed
+    (gzip stamps each member's time)."""
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"CLI batch failed:\n{stderr[-3000:]}")
+    res = {}
+    for tag, rc in json.loads(stdout.splitlines()[-1]).items():
+        d = os.path.join(cwd, tag)
+        outs = {}
+        for name in sorted(os.listdir(d)):
+            if name != "stderr":
+                with open(os.path.join(d, name), "rb") as f:
+                    data = f.read()
+                outs[name] = gzip.decompress(data) if name.endswith(".gz") \
+                    else data
+        with open(os.path.join(d, "stderr")) as f:
+            res[tag] = (rc, f.read(), outs)
+    return res
+
+
+def tvm_world() -> dict:
+    """tests/test_variant_modes.py's world (2 errors, 1 spurious call)."""
+    rng = random.Random(123)
+    g = random_dna(rng, 600)
+    asm = list(g)
+    for p in (150, 400):
+        asm[p] = cs.ALT_OF[asm[p]]
+    asm = "".join(asm)
+    vcf = [("chr1", p, asm[p], g[p], "40.7", "1/1") for p in (150, 400)]
+    vcf.append(("chr1", 250, asm[250], cs.ALT_OF[asm[250]], "13.2", "1/1"))
+    return dict(k=11, peak=30.0, scaffolds=[("chr1", asm)], reads=[g] * 30,
+                prob=None, vcf=sorted(vcf, key=lambda r: r[1]))
+
+
+def het_world() -> dict:
+    """Reads of two haplotypes: Y or Z at 300 (the assembly has X), the
+    assembly base or W at 700; a true correction at 1000."""
+    rng = np.random.default_rng(7)
+    g = cs._dna(rng, 1200)
+    x = g[300]
+    y, z, w = cs.ALT_OF[x], cs.ALT_OF[cs.ALT_OF[x]], cs.ALT_OF[g[700]]
+    hap_y = g[:300] + y + g[301:700] + w + g[701:]
+    hap_z = g[:300] + z + g[301:]
+    asm = g[:1000] + cs.ALT_OF[g[1000]] + g[1001:]
+    vcf = [("chr1", 300, x, f"{y},{z}", "50", "1/2"),
+           ("chr1", 700, g[700], w, "30", "0/1"),
+           ("chr1", 1000, asm[1000], g[1000], "40", "1/1")]
+    return dict(k=21, peak=30.0, scaffolds=[("chr1", asm)],
+                reads=[hap_y] * 15 + [hap_z] * 15, prob=None, vcf=vcf)
+
+
+def heavy_world(n_clusters: int = 3, n_vars: int = 8, spacing: int = 8,
+                k: int = 21) -> dict:
+    """bench.py:_bench_variants_heavy's world: clusters of n_vars
+    variants (true correction, spurious SNP, 1/2 site, insertion, ...)."""
+    rng = random.Random(17)
+    gap = 400
+    n = n_clusters * (n_vars * spacing + gap) + 2 * k
+    genome = "".join(rng.choice("ACGT") for _ in range(n))
+    asm = list(genome)
+    rows = []
+    for c in range(n_clusters):
+        base = c * (n_vars * spacing + gap) + k
+        for v in range(n_vars):
+            p = base + v * spacing
+            kind = v % 4
+            if kind == 0:
+                asm[p] = cs.ALT_OF[asm[p]]
+                rows.append(("c", p, asm[p], genome[p], "30", "1/1"))
+            elif kind == 1:
+                rows.append(("c", p, asm[p], cs.ALT_OF[asm[p]], "30", "1/1"))
+            elif kind == 2:
+                a1 = cs.ALT_OF[asm[p]]
+                rows.append(("c", p, asm[p], f"{a1},{cs.ALT_OF[a1]}", "30",
+                             "1/2"))
+            else:
+                rows.append(("c", p, asm[p], asm[p] + rng.choice("ACGT"),
+                             "30", "1/1"))
+    return dict(k=k, peak=30.0, scaffolds=[("c", "".join(asm))],
+                reads=[genome] * 30, prob=None, vcf=rows)
+
+
+WORLDS = {
+    "recipe": (cs.recipe_world, {
+        "polish_host": ["-polish"] + HOST,
+        "loose_host": ["-loose"] + HOST,
+        "polish_debug": ["-polish", "-debug"],
+        "filter_debug_devscore": ["-filter", "-debug", "-devscore"]}),
+    "tvm": (tvm_world, {
+        "polish_host": ["-polish"] + HOST,
+        "filter_host": ["-filter"] + HOST,
+        "strict_host": ["-strict"] + HOST,
+        "better_debug": ["-better", "-debug"]}),
+    "k21prob": (lambda: cs.parity_world(1, 100_000, k=21), {
+        "polish_devscore": ["-polish", "-devscore"],
+        "filter_host": ["-filter"] + HOST,
+        "polish_debug": ["-polish", "-debug"]}),
+    "het": (het_world, {
+        "polish_host": ["-polish"] + HOST,
+        "loose_host": ["-loose"] + HOST}),
+    "heavy": (heavy_world, {
+        "polish_t3": ["-polish", "-threads", "3"],
+        "filter_t3": ["-filter", "-threads", "3"],
+        "polish_host_t3": ["-polish", "-threads", "3"] + HOST}),
+}
+
+
+def _env(tmp_path):
+    return dict(os.environ, JAX_PLATFORMS="cpu", MERFIN_PLATFORM="cpu",
+                MERFIN_TPU_CACHE=str(tmp_path / "jax_cache"))
+
+
+@pytest.mark.parametrize("name", WORLDS)
+def test_variant_modes_port_match_jax_cli(name, tmp_path):
+    make, extra = WORLDS[name]
+    world = make()
+    argv = cs.materialize(world, str(tmp_path / "world"))
+    runs = [(m, cs.vcf_argv(argv, m) + ["-threads", "1", "-output", "out"])
+            for m in cs.VARIANT_MODES]
+    for tag, flags in extra.items():
+        mode = flags[0][1:]
+        runs.append((tag, cs.vcf_argv(argv, mode) + flags[1:]
+                     + (["-threads", "1"] if "-threads" not in flags else [])
+                     + ["-output", "out"]))
+    procs = {pkg: batch_subprocess(pkg, runs, str(tmp_path / pkg),
+                                   _env(tmp_path))
+             for pkg in ("merfin_tpu_torch", "merfin_tpu")}
+    res = {pkg: wait_batch(p, str(tmp_path / pkg))
+           for pkg, p in procs.items()}
+    port, jax = res["merfin_tpu_torch"], res["merfin_tpu"]
+    assert port.keys() == jax.keys()
+    for tag in port:
+        assert port[tag] == jax[tag], (tag, port[tag][1][-800:],
+                                       jax[tag][1][-800:])
+
+    rc, err, outs = port["polish"]
+    assert rc == 0 and err.endswith("Bye!\n")
+    assert "-- Using fused device scoring (-devscore)." in err \
+        or world["prob"]
+    for tag, (rc, err, outs) in port.items():
+        if tag == "filter_debug_devscore":
+            assert rc == 1 and "cannot run with -devscore" in err
+            assert not outs
+        elif tag.endswith("_debug"):
+            assert "out.00.debug.gz" in outs
+            assert outs["out.00.debug.gz"].count(b"\n") > 0
+    n_rec = cs.vcf_records(port["polish"][2]["out.polish.vcf"])
+    if name == "recipe":
+        assert n_rec == 3 and port["polish_host"][2] == port["polish"][2]
+    elif name == "tvm":
+        assert n_rec == 2 and port["filter"][2]["out.filter.vcf"].endswith(
+            b"\t40.7\tPASS\t.\tGT\t1/1\n")
+    elif name == "het":
+        pol = port["polish"][2]["out.polish.vcf"].decode()
+        assert "chr1\t301\t.\t" in pol and "\t1/2\n" in pol
+        assert n_rec == 3
+    elif name == "heavy":
+        assert n_rec == 6     # the two true corrections of each cluster
+        assert port["polish_t3"][2] == port["polish"][2]
+        assert port["polish_host_t3"][2] == port["polish"][2]
+
+
+@pytest.mark.parametrize("scorer", ["fused", "host"])
+def test_variants_resume_continues_exactly(scorer, tmp_path):
+    """A run cut at a sequence boundary and resumed with -resume ends
+    with the output of an uninterrupted run."""
+    from merfin_tpu.io.fasta import SeqFile
+    from merfin_tpu.io.mkdb import KmerDB
+    from merfin_tpu.io.prob import load_prob_table
+    from merfin_tpu.io.vcf import VcfFile
+    from merfin_tpu.table.lookup import build_lookup
+    from merfin_tpu_torch.modes.variants import run_variants
+    from merfin_tpu_torch.ops.union_join import UnionTable, host_lookups
+    from merfin_tpu_torch.variants.device_score import DeviceScorer
+
+    world = cs.parity_world(4, 30_000, k=21)
+    argv = cs.materialize(world, str(tmp_path))
+    fasta, vcf_path = argv[2], str(tmp_path / "calls.vcf")
+    rdb, adb = KmerDB(argv[4]), KmerDB(argv[6])
+    prob = load_prob_table(argv[argv.index("-prob") + 1], log=io.StringIO())
+    rl, al = build_lookup(rdb, host=True), build_lookup(adb, host=True)
+    table = UnionTable.from_dbs(rl.keys, rl.vals, al.keys, al.vals, "cpu")
+    lookups = host_lookups(table)
+
+    def run(out, seqs, resume):
+        vcf = VcfFile(vcf_path, log=io.StringIO())
+        vcf.merge_clusters(21, 15, False, log=io.StringIO())
+        sc = DeviceScorer(table, 21, 2.0, prob, max_value=int(rdb.vals.max()),
+                          exact_max=True) if scorer == "fused" else None
+        log = io.StringIO()
+        run_variants("filter", seqs, vcf, 21, *lookups, 2.0, prob,
+                     str(tmp_path / out), log=log, resume=resume, scorer=sc)
+        return log.getvalue()
+
+    class Interrupted(SeqFile):
+        def __iter__(self):
+            for i, s in enumerate(super().__iter__()):
+                if i == 6:
+                    raise KeyboardInterrupt
+                yield s
+
+    full_log = run("full", SeqFile(fasta), False)
+    with pytest.raises(KeyboardInterrupt):
+        run("cut", Interrupted(fasta), True)
+    assert os.path.exists(tmp_path / "cut.ckpt.json")
+    log = run("cut", SeqFile(fasta), True)
+    assert "-- Resuming after 6 sequences." in log
+    assert not os.path.exists(tmp_path / "cut.ckpt.json")
+    full = (tmp_path / "full.filter.vcf").read_bytes()
+    assert (tmp_path / "cut.filter.vcf").read_bytes() == full
+    assert cs.vcf_records(full) > 0
+    assert log.count("Processing sequence") < full_log.count(
+        "Processing sequence")
