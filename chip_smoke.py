@@ -10,18 +10,28 @@ the variant modes) end to end on the GPU and checks them, phase by phase
   2. build    every kernel library from csrc/ with nvcc for sm_90a, one
               nvcc per source in parallel, with ptxas's register and
               spill lines;
-  3. kernel   each kernel vs its plain PyTorch version, bit-exact, with
-              median times of both taken in turns.  union_join: the full
-              world's union table against one dispatch's sorted
-              2^20-window query stream with hits, misses and sentinels, a
-              ragged length, a k=20 table with palindromes, and (timed)
-              the sorted 2^23-window stream of a phase-8 heavy cluster's
-              first span, as the fused variant scorer probes it.  sorted_join
+  3. kernel   each kernel vs its plain PyTorch version, bit-exact, and
+              the earlier binary search (merfin_union_join_bsearch) vs the
+              same for union_join and sorted_join; at each timed shape
+              the median times of plain, kernel, kernel, bsearch,
+              bsearch, plain in turns, one torch.searchsorted of the
+              same biased queries (library_ms, a yardstick the port
+              never calls) and the bound (join_bytes over 3.35 TB/s).
+              union_join: the full world's union table against one
+              -hist dispatch's sorted 2^20-window query stream with
+              hits, misses and sentinels (timed), a ragged length, a
+              k=20 table with palindromes, and (timed) the sorted
+              2^23-window stream of a phase-8 heavy cluster's first
+              span, as the fused variant scorer probes it.  sorted_join
               and window_join: the full world's asm table against one
               2^22 block of sorted read-DB keys (the completeness
-              dispatch), a v1-ratio table of 2^21 keys against 2^20
-              queries with 10% misses and 1% sentinels, a ragged length,
-              a k=31 table with keys near 2^62, values near 2^32-1;
+              dispatch, timed), a v1-ratio table of 2^21 keys against
+              2^20 queries with 10% misses and 1% sentinels (timed), a
+              ragged length, a k=31 table with keys near 2^62, values
+              near 2^32-1.  All three on join_edge_cases: k=32 keys with
+              bit 63, n = 0 and 1, ragged lengths, heavy duplication,
+              values >= 2^31, and tiles on each side of the windowed
+              join's dense/sparse threshold and shared-memory capacity;
   4. oracle   small worlds through the CLI on CUDA: the verify recipe's
               world and a fragmented 200 kb world with a -prob table are
               held byte for byte to tests/refmodel.py:hist_mode; the same
@@ -63,11 +73,13 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               and its split.
 
 The world is made from --seed with numpy; databases are written with the
-shared KmerDB.create.  The last three stdout lines are a JSON object of
-the kernels (launches in their main paths, each run with the counts set
-to 0 just before it; max |kernel - plain|; median ms of each at the
-main path's shape), the card's `nvidia-smi --query-gpu=name,power.limit`
-line, and {"ok": true, "device": {...}}.
+port's KmerDB.create.  The last three stdout lines are a JSON object of
+the kernels (launches in each main path, each run with the counts set
+to 0 just before it, and their sum; max |kernel - plain|; ms, plain_ms,
+bsearch_ms, library_ms and bound_ms at the main path's shape, and at
+every timed shape under "shapes"), the card's
+`nvidia-smi --query-gpu=name,power.limit` line, and
+{"ok": true, "device": {...}}.
 
 Without CUDA the script fails (exit 1) and prints no result.  Phases 4
 to 8 also run on the CPU at a tiny size in tests/test_torch_hist.py
@@ -229,7 +241,7 @@ def write_vcf(path: str, contigs, rows) -> None:
 
 def canonical_counts(code_arrays, k: int):
     """Sorted canonical keys (u64) and their counts over code arrays."""
-    from merfin_tpu.kcore.pack import kmers_from_codes_np
+    from merfin_tpu_torch.kcore.pack import kmers_from_codes_np
 
     parts = []
     for c in code_arrays:
@@ -243,8 +255,8 @@ def canonical_counts(code_arrays, k: int):
 def materialize(world: dict, d: str) -> list[str]:
     """Write the world's FASTA, DBs and prob table under ``d``; returns
     the -hist argv without -output."""
-    from merfin_tpu.io.mkdb import KmerDB
-    from merfin_tpu.kcore.pack import encode_bases
+    from merfin_tpu_torch.io.mkdb import KmerDB
+    from merfin_tpu_torch.kcore.pack import encode_bases
 
     os.makedirs(d, exist_ok=True)
     k = world["k"]
@@ -581,8 +593,8 @@ def check_small_modes(tmp: str, seed: int, bases: int, platform: str) -> None:
     world through the CLI on ``platform``, held to tests/refmodel.py
     (completeness totals; dump rows byte for byte); run_completeness on
     a v1 (window-join) table gives the CLI's v4 lines."""
-    from merfin_tpu.io.mkdb import KmerDB
-    from merfin_tpu.io.prob import load_prob_table
+    from merfin_tpu_torch.io.mkdb import KmerDB
+    from merfin_tpu_torch.io.prob import load_prob_table
     from merfin_tpu_torch.modes.completeness import run_completeness
 
     worlds = {"recipe": recipe_world(), "parity": parity_world(seed, bases)}
@@ -696,12 +708,12 @@ def full_world(d: str, seed: int, mbp: float, n_error: int, device,
     scaffolds and 2,000 contigs (log-uniform 1-20 kb), N gaps and 2,000
     substitutions; read DB = the true genome's canonical k-mers at
     Poisson(30) counts plus ``n_error`` error k-mers at counts 1-3.
-    The k-mers come from the shared numpy/native extractor; their sorts
+    The k-mers come from the port's numpy/native extractor; their sorts
     run on ``device``."""
     import torch
 
-    from merfin_tpu.io.mkdb import KmerDB
-    from merfin_tpu.kcore.pack import kmers_from_codes_np
+    from merfin_tpu_torch.io.mkdb import KmerDB
+    from merfin_tpu_torch.kcore.pack import kmers_from_codes_np
 
     rng = np.random.default_rng(seed)
     G = int(mbp * 1e6)
@@ -946,8 +958,8 @@ def heavy_span(w: dict, plan: dict, windows: int = 1 << 23):
     it: canonical mers, u64::MAX for invalid windows and the padding;
     the span's _pack_inputs; the cluster's path count; the span's
     window count)."""
-    from merfin_tpu.kcore.pack import kmers_from_codes_np
-    from merfin_tpu.variants.enumerate_fast import build_path_block_fast
+    from merfin_tpu_torch.kcore.pack import kmers_from_codes_np
+    from merfin_tpu_torch.variants.enumerate_fast import build_path_block_fast
     from merfin_tpu_torch.variants.device_score import (_pack_inputs,
                                                         split_spans)
 
@@ -1005,7 +1017,7 @@ def dispatch_queries(asm_first: np.ndarray, k: int, rng, windows: int):
     """One dispatch's sorted query stream: the first ``windows`` windows
     of a scaffold (canonical; invalid windows as u64::MAX), with 10%
     replaced by random mers (misses) and 1% by sentinels."""
-    from merfin_tpu.kcore.pack import kmers_from_codes_np
+    from merfin_tpu_torch.kcore.pack import kmers_from_codes_np
 
     fmer, rmer, valid = kmers_from_codes_np(asm_first[: windows + k - 1], k)
     q = np.where(valid, np.minimum(fmer, rmer), np.uint64(2**64 - 1))
@@ -1017,14 +1029,72 @@ def dispatch_queries(asm_first: np.ndarray, k: int, rng, windows: int):
     return np.sort(q)
 
 
-def time_pair(kernel_fn, plain_fn, reps: int):
-    """Median ms of a kernel and of its plain version, taken in turns
-    (plain, kernel, kernel, plain); the lower median of each."""
+H100_BYTES_PER_S = 3.35e12      # HBM3 of the H100 SXM (data sheet)
+
+
+def join_bytes(keys, q, nv: int) -> int:
+    """The bytes a sorted join must move for sorted queries ``q`` against
+    sorted ``keys`` with ``nv`` u32 value columns (tensors on the card):
+    8 B a query read, 4 * nv B a result written, the 32-byte sector
+    holding each distinct query's lower-bound key, and, for each hit,
+    the 32-byte sector of its value in each column; each sector counted
+    once, so where the queries are dense this is the window's contiguous
+    8 + 4 * nv bytes a key."""
+    import torch
+
+    from merfin_tpu_torch.ops.kmer_ops import U64_MAX, bias
+
+    m, n = q.numel(), keys.numel()
+    total = (8 + 4 * nv) * m
+    uq = torch.unique(q[q != U64_MAX])
+    if n == 0 or uq.numel() == 0:
+        return total
+    lb = torch.searchsorted(bias(keys), bias(uq)).clamp_(max=n - 1)
+    hit = keys[lb] == uq
+    total += 32 * torch.unique(lb // 4).numel()
+    total += 32 * nv * torch.unique(lb[hit] // 8).numel()
+    return int(total)
+
+
+def time_turns(kernel_fn, plain_fn, reps: int, bsearch_fn=None) -> dict:
+    """Median ms of a kernel, its plain version and (where given) the
+    earlier binary search, taken in turns (plain, kernel, kernel,
+    bsearch, bsearch, plain); the lower median of each."""
     p1 = _median_ms(plain_fn, reps)
     k1 = _median_ms(kernel_fn, reps)
     k2 = _median_ms(kernel_fn, reps)
+    b = ([_median_ms(bsearch_fn, reps) for _ in range(2)]
+         if bsearch_fn is not None else None)
     p2 = _median_ms(plain_fn, reps)
-    return min(k1, k2), min(p1, p2)
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                bsearch_ms=min(b) if b else None)
+
+
+def measure(keys, q, nv: int, reps: int, kernel_fn, plain_fn,
+            bsearch_fn=None) -> dict:
+    """time_turns plus the bound (join_bytes over the card's memory
+    rate) and the library yardstick: one torch.searchsorted of the same
+    biased queries into the same biased keys (it yields only the index;
+    the port never calls it)."""
+    import torch
+
+    from merfin_tpu_torch.ops.kmer_ops import bias
+
+    out = time_turns(kernel_fn, plain_fn, reps, bsearch_fn)
+    kb, qb = bias(keys), bias(q)
+    out["library_ms"] = _median_ms(lambda: torch.searchsorted(kb, qb), reps)
+    out["bytes"] = join_bytes(keys, q, nv)
+    out["bound_ms"] = out["bytes"] / H100_BYTES_PER_S * 1e3
+    out["bound_by"] = "bytes"
+    return out
+
+
+def fmt_times(t: dict) -> str:
+    s = f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms"
+    if t.get("bsearch_ms") is not None:
+        s += f", binary search {t['bsearch_ms']:.4f} ms"
+    return (s + f", torch.searchsorted {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bytes']} bytes)")
 
 
 def _u32_err(a, b) -> int:
@@ -1038,41 +1108,57 @@ def _u32_err(a, b) -> int:
 
 
 def check_kernel(table, q_np: np.ndarray, reps: int):
-    """Kernel vs plain on ``table`` for sorted queries: bit-exact check,
-    max |diff|, median ms of each (plain, kernel, kernel, plain)."""
+    """Kernel vs plain on a union ``table`` for sorted queries, and the
+    earlier binary search vs plain: bit-exact checks, max |diff|, hits,
+    and (reps > 0) measure()'s times."""
     import torch
+
+    from merfin_tpu_torch.ops.union_join import bsearch_join_kernel
+
+    def old():
+        return bsearch_join_kernel(table.keys, table.read_vals,
+                                   table.asm_vals, q)
 
     q = torch.from_numpy(q_np.view(np.int64)).to(table.device)
     kr, ka = table.lookup2_sorted(q)
     pr, pa = table.lookup2_plain(q)
+    br, ba = old()
     torch.cuda.synchronize()
     err = max(_u32_err(kr, pr), _u32_err(ka, pa))
     assert torch.equal(kr, pr) and torch.equal(ka, pa), "kernel != plain"
+    assert torch.equal(br, pr) and torch.equal(ba, pa), "bsearch != plain"
     hits = int(((pr != 0) | (pa != 0)).sum())
     if reps == 0:
-        return err, None, None, hits
-    k_ms, p_ms = time_pair(lambda: table.lookup2_sorted(q),
-                           lambda: table.lookup2_plain(q), reps)
-    return err, k_ms, p_ms, hits
+        return err, None, hits
+    return err, measure(table.keys, q, 2, reps,
+                        lambda: table.lookup2_sorted(q),
+                        lambda: table.lookup2_plain(q), old), hits
 
 
 def check_single(table, q_np: np.ndarray, reps: int):
-    """check_kernel for a single-value table (SortedJoinTable or the
-    window join's SortJoinTable)."""
+    """check_kernel for a single-value table (SortedJoinTable, with the
+    earlier binary search, or the window join's SortJoinTable)."""
     import torch
+
+    from merfin_tpu_torch.ops.union_join import bsearch_join_kernel
 
     q = torch.from_numpy(q_np.view(np.int64)).to(table.device)
     got = table.lookup_sorted(q)
     want = table.lookup_plain(q)
+    old = None
+    if table.fences is not None:
+        def old():
+            return bsearch_join_kernel(table.keys, table.vals, None, q)[0]
+        assert torch.equal(old(), want), "bsearch != plain"
     torch.cuda.synchronize()
     err = _u32_err(got, want)
     assert torch.equal(got, want), f"{table.kernel.name} kernel != plain"
     hits = int((want != 0).sum())
     if reps == 0:
-        return err, None, None, hits
-    k_ms, p_ms = time_pair(lambda: table.lookup_sorted(q),
-                           lambda: table.lookup_plain(q), reps)
-    return err, k_ms, p_ms, hits
+        return err, None, hits
+    return err, measure(table.keys, q, 1, reps,
+                        lambda: table.lookup_sorted(q),
+                        lambda: table.lookup_plain(q), old), hits
 
 
 def ratio_queries(rng, keys: np.ndarray, m: int, lo: int, hi: int):
@@ -1086,13 +1172,23 @@ def ratio_queries(rng, keys: np.ndarray, m: int, lo: int, hi: int):
     return np.sort(q)
 
 
-def check_single_kernels(adb, rdb, rng, reps: int) -> dict:
+def kernel_report(errs: list, shapes: dict, main: str) -> dict:
+    """One kernel's entry of the kernels line: max |kernel - plain| over
+    every case, the times of its main path's shape at the top level,
+    every timed shape under "shapes"."""
+    return dict(max_abs_err=max(errs), **{
+        k: v for k, v in shapes[main].items() if k != "bytes"},
+        shapes=shapes)
+
+
+def check_single_kernels(adb, rdb, rng, reps: int, edges: list) -> dict:
     """Phase 3, the single-value kernels (sorted_join, window_join) vs
-    their plain versions, bit-exact: the full world's asm table against
-    one 2^22 block of sorted read-DB keys (the completeness dispatch,
-    timed), a v1-ratio table of 2^21 keys against 2^20 sorted queries
-    (timed) and at a ragged length, a k=31 table with keys near 2^62,
-    and values near 2^32-1.  -> {kernel name: report}."""
+    their plain versions, bit-exact (sorted_join's earlier binary search
+    too): the full world's asm table against one 2^22 block of sorted
+    read-DB keys (the completeness dispatch, timed), a v1-ratio table of
+    2^21 keys against 2^20 sorted queries (timed) and at a ragged
+    length, a k=31 table with keys near 2^62, values near 2^32-1, and
+    the ``edges`` of join_edge_cases.  -> {kernel name: report}."""
     import torch
 
     from merfin_tpu_torch.ops.sorted_join import SortedJoinTable
@@ -1100,54 +1196,126 @@ def check_single_kernels(adb, rdb, rng, reps: int) -> dict:
 
     smi = smi_line()
     mid = max(0, rdb.distinct // 2 - (1 << 21))
-    cases = [("asm table x 2^22 read-DB keys", adb.keys, adb.vals,
-              np.array(rdb.keys[mid: mid + (1 << 22)]), True)]
+    cases = [("completeness block: asm table x 2^22 read-DB keys", adb.keys,
+              adb.vals, np.array(rdb.keys[mid: mid + (1 << 22)]),
+              "completeness block")]
     k21 = 1 << 42
     rk = np.unique(rng.integers(0, k21, size=(1 << 21) + 4096,
                                 dtype=np.uint64))[: 1 << 21]
     rv = rng.integers(1, 1 << 16, size=rk.size).astype(np.uint32)
     rq = ratio_queries(rng, rk, 1 << 20, 0, k21)
-    cases += [("v1 ratio: 2^21 keys x 2^20 queries", rk, rv, rq, True),
-              ("ragged 2^20-77", rk, rv, rq[: (1 << 20) - 77], False)]
+    cases += [("v1 ratio: 2^21 keys x 2^20 queries", rk, rv, rq, "v1 ratio"),
+              ("ragged 2^20-77", rk, rv, rq[: (1 << 20) - 77], None)]
     top = (1 << 62) - 1
     k31 = np.unique(np.uint64(top) - rng.integers(0, 1 << 40, size=1 << 20,
                                                   dtype=np.uint64))
     cases.append(("k=31 keys near 2^62", k31,
                   rng.integers(1, 1000, size=k31.size).astype(np.uint32),
                   ratio_queries(rng, k31, 1 << 19, top - (1 << 40), top),
-                  False))
+                  None))
     big = (np.uint32(0xFFFFFFFF)
            - rng.integers(0, 1000, size=rk.size).astype(np.uint32))
-    cases.append(("values near 2^32-1", rk, big, rq, False))
+    cases.append(("values near 2^32-1", rk, big, rq, None))
+    cases += [(f"edge: {label}", keys, v0, q, None)
+              for label, keys, v0, _, q in edges]
 
     report = {}
     for cls in (SortedJoinTable, SortJoinTable):
         name = cls.kernel.name
-        errs, timed = [], None
-        for label, keys, vals, q, timing in cases:
+        errs, shapes = [], {}
+        for label, keys, vals, q, shape in cases:
             table = cls(keys, vals, "cuda")
-            err, k_ms, p_ms, hits = check_single(table, q,
-                                                 reps if timing else 0)
+            err, times, hits = check_single(table, q,
+                                            reps if shape else 0)
             errs.append(err)
             msg = (f"  {name}, {label} ({table.n} keys, {q.size} queries, "
                    f"{hits} hits): bit-exact")
-            if timing:
-                msg += (f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-                        f"(median of {reps}; {smi})")
-                if timed is None:       # the completeness dispatch
-                    timed = (k_ms, p_ms)
+            if shape:
+                shapes[shape] = times
+                msg += f"; {fmt_times(times)} (median of {reps}; {smi})"
             say(msg)
             del table
             torch.cuda.empty_cache()
-        report[name] = dict(max_abs_err=max(errs), ms=timed[0],
-                            plain_ms=timed[1])
+        report[name] = kernel_report(errs, shapes, "completeness block")
     return report
+
+
+def join_edge_cases(rng, cfg: dict) -> list:
+    """(label, keys u64, vals0 u32, vals1 u32, sorted queries u64) for
+    the windowed join's edges at its built constants (``cfg``: the
+    kernel wrapper's config()): k=32 keys with bit 63 set, n = 0 and
+    n = 1, a ragged length, heavy duplication, values >= 2^31, and one
+    table whose tiles' windows sit on each side of the dense/sparse
+    threshold, of one and two shared-memory chunks of fences (windows
+    larger than shared memory) and of the sparse/device-memory search
+    threshold, ending in a tile of sentinels and a ragged tile."""
+    tile, fence, smem = cfg["tile"], cfg["fence"], cfg["smem"]
+    wide = cfg["fences_per_query"] * tile
+    top = np.iinfo(np.uint64).max
+    sent = np.uint64(top)
+
+    def vals(n, lo=1, hi=1 << 32):
+        return rng.integers(lo, hi, size=n).astype(np.uint32)
+
+    def mixed(keys, m, n_sent):
+        parts = [rng.integers(0, top, size=m // 2, dtype=np.uint64),
+                 np.full(n_sent, sent)]
+        if keys.size:
+            parts.append(keys[rng.integers(0, keys.size,
+                                           size=m - m // 2 - n_sent)])
+        return np.sort(np.concatenate(parts))
+
+    cases = []
+    k32 = np.unique(rng.integers(1 << 63, top, size=50_000, dtype=np.uint64))
+    k32 = np.unique(np.concatenate([k32, rng.integers(
+        0, 1 << 63, size=50_000, dtype=np.uint64)]))
+    cases.append(("k=32 keys, bit 63 set", k32, vals(k32.size),
+                  vals(k32.size), mixed(k32, 8 * tile, tile // 3)))
+    e = np.zeros(0, np.uint64)
+    cases.append(("n = 0", e, vals(0), vals(0), mixed(e, 3 * tile, 5)))
+    one = np.asarray([rng.integers(1, top - 1, dtype=np.uint64)])
+    q1 = np.sort(np.concatenate([np.repeat(one, tile + 3), one - 1, one + 1,
+                                 np.full(9, sent)]))
+    cases.append(("n = 1", one, vals(1), vals(1), q1))
+    cases.append(("ragged length", k32, vals(k32.size), vals(k32.size),
+                  mixed(k32, 5 * tile + 7, 0)[: 5 * tile + 7]))
+    few = k32[rng.integers(0, k32.size, size=40)]
+    dup = np.sort(np.concatenate([np.repeat(few, 997),
+                                  np.full(3 * tile + 1, sent)]))
+    cases.append(("heavy duplication", k32, vals(k32.size), vals(k32.size),
+                  dup))
+    cases.append(("values >= 2^31", k32, vals(k32.size, 1 << 31),
+                  vals(k32.size, 1 << 31), mixed(k32, 4 * tile, 11)))
+
+    # one tile per window of W keys, starting at an odd leaf (so the
+    # fence slice starts at an odd, unaligned index)
+    widths = [smem - fence, smem, smem + fence, fence * (smem - 2),
+              fence * (smem - 1), fence * (2 * smem - 4),
+              fence * (2 * smem - 3), fence * wide, fence * (wide + 1),
+              3 * fence * wide // 2]
+    n = sum(widths) + fence * (2 * len(widths) + 8)
+    # even keys; the odd values between them are misses
+    keys = np.arange(n, dtype=np.uint64) * np.uint64(2) + np.uint64(1000)
+    q, s = [], fence
+    for w in widths:
+        inner = keys[s] + rng.integers(0, 2 * (w - 1), size=tile - 2,
+                                       dtype=np.uint64)
+        q.append(np.sort(np.concatenate([[keys[s]], inner,
+                                         [keys[s + w - 1]]])))
+        s += w + fence
+        s += fence if (s // fence) % 2 == 0 else 0
+    q.append(np.sort(keys[s:][rng.integers(0, n - s, size=tile)]))
+    q.append(np.full(tile + tile // 2 + 3, sent))
+    cases.append(("windows around the dense/sparse threshold and the "
+                  "shared-memory fence capacity", keys, vals(n), vals(n),
+                  np.concatenate(q)))
+    return cases
 
 
 def palindrome_table(rng, k: int = 20, n: int = 1 << 20):
     """A k=20 union table holding palindromic keys, and sorted queries
     that hit them."""
-    from merfin_tpu.kcore.pack import revcomp_np
+    from merfin_tpu_torch.kcore.pack import revcomp_np
 
     half = rng.integers(0, 1 << k, size=4096, dtype=np.uint64)
     pal = (half << np.uint64(k)) | (revcomp_np(half, k // 2))
@@ -1228,7 +1396,7 @@ def main() -> int:
                            args.mbp, args.error_kmers, "cuda")
             say(f"  full world: {w['bases']} bases, {w['n_seqs']} sequences, "
                 f"{w['read_keys']} read keys ({time.perf_counter() - t0:.1f} s)")
-            from merfin_tpu.io.mkdb import KmerDB
+            from merfin_tpu_torch.io.mkdb import KmerDB
 
             rdb = KmerDB(w["argv"][4])
             adb = KmerDB(w["argv"][6])
@@ -1238,35 +1406,48 @@ def main() -> int:
             say(f"  union table: {table.n} keys, {table.nbytes() / 1e9:.2f} GB "
                 f"on the card ({time.perf_counter() - t0:.1f} s)")
             q = dispatch_queries(w["asm_first"], w["k"], rng, 1 << 20)
-            err, k_ms, p_ms, hits = check_kernel(table, q, args.reps)
-            say(f"  2^20 sorted queries ({hits} hits): bit-exact; kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {args.reps}; "
-                f"{smi})")
+            err, hist_t, hits = check_kernel(table, q, args.reps)
+            say(f"  -hist dispatch, 2^20 sorted queries ({hits} hits): "
+                f"bit-exact (binary search too); {fmt_times(hist_t)} "
+                f"(median of {args.reps}; {smi})")
             err2, *_ = check_kernel(table, q[: (1 << 20) - 77], 0)
             say("  ragged length 2^20-77: bit-exact")
             plan = variant_plan(w, os.path.join(tmp, "full"), args.seed)
             qv, packed, n_paths, n_win = heavy_span(w, plan)
-            err4, kv_ms, pv_ms, hits = check_kernel(table, qv, args.reps)
+            err4, span_t, hits = check_kernel(table, qv, args.reps)
             say(f"  variant span: the first 2^23-window span of a heavy "
                 f"cluster ({n_paths} paths; {n_win} windows in the span, "
                 f"{np.unique(qv).size} distinct queries, {hits} hits): "
-                f"bit-exact; kernel {kv_ms:.4f} ms, plain {pv_ms:.4f} ms "
-                f"(median of {args.reps}; {smi})")
+                f"bit-exact; {fmt_times(span_t)} (median of {args.reps}; "
+                f"{smi})")
             span_ms = time_span_program(table, w, packed, args.reps)
             say(f"  fused scorer program on that span (unpack to boundary "
                 f"reduce, inputs on the card): {span_ms:.4f} ms, union_join "
-                f"{100 * kv_ms / span_ms:.1f}% of it (median of "
+                f"{100 * span_t['ms'] / span_ms:.1f}% of it (median of "
                 f"{args.reps}; {smi})")
             del table
             tabs, qp = palindrome_table(rng)
             ptable = UnionTable.from_dbs(*tabs, "cuda")
-            err3, *_ = check_kernel(ptable, qp, 0)
+            errs = [err, err2, err4, check_kernel(ptable, qp, 0)[0]]
             say(f"  k=20 palindrome table ({ptable.n} keys): bit-exact")
             del ptable
+            cfg = union_join_kernel.config()
+            say(f"  windowed join built with tile {cfg['tile']}, fence "
+                f"stride {cfg['fence']}, {cfg['smem']} shared-memory "
+                f"entries, {cfg['fences_per_query']} fences a query")
+            edges = join_edge_cases(rng, cfg)
+            for label, keys, v0, v1, qe in edges:
+                etable = UnionTable(keys, v0, v1, "cuda")
+                errs.append(check_kernel(etable, qe, 0)[0])
+                say(f"  edge: {label} ({etable.n} keys, {qe.size} queries): "
+                    f"bit-exact (binary search too)")
+                del etable
             torch.cuda.empty_cache()
-            report[union_join_kernel.name] = dict(
-                max_abs_err=max(err, err2, err3, err4), ms=k_ms, plain_ms=p_ms)
-            report.update(check_single_kernels(adb, rdb, rng, args.reps))
+            report[union_join_kernel.name] = kernel_report(
+                errs, {"-hist dispatch": hist_t, "variant span": span_t},
+                "-hist dispatch")
+            report.update(check_single_kernels(adb, rdb, rng, args.reps,
+                                               edges))
 
         with phase("4 oracle"):
             check_small_worlds(tmp, args.seed, args.small_bases, args.repeat,
@@ -1275,26 +1456,34 @@ def main() -> int:
             check_small_variants(tmp, args.seed, args.small_bases, "cuda")
 
         # each main path runs with the launch counts set to 0 just before
-        # it and read just after; a kernel reports the sum over its paths
+        # it and read just after; a kernel reports its launches in each
+        # path and their sum
+        by_path = {kern.name: {} for kern in kernels}
         with phase("5 full"):
-            launches = {union_join_kernel.name: _run_full(
-                w, os.path.join(tmp, "full", "run"))}
+            by_path[union_join_kernel.name]["-hist"] = _run_full(
+                w, os.path.join(tmp, "full", "run"))
 
         with phase("6 completeness full"):
-            launches.update(_run_completeness_full(
-                w, os.path.join(tmp, "full", "compl")))
+            n = _run_completeness_full(w, os.path.join(tmp, "full", "compl"))
+            by_path[sorted_join_kernel.name]["-completeness"] = \
+                n[sorted_join_kernel.name]
+            by_path[window_join_kernel.name]["-completeness, v1 table"] = \
+                n[window_join_kernel.name]
 
         with phase("7 dump full"):
-            launches[union_join_kernel.name] += _run_dump_full(
+            by_path[union_join_kernel.name]["-dump"] = _run_dump_full(
                 w, os.path.join(tmp, "full", "dump"))
 
         with phase("8 variants full"):
-            launches[union_join_kernel.name] += _run_variants_full(
-                w, plan, os.path.join(tmp, "full", "variants"))
+            by_path[union_join_kernel.name]["variant modes"] = \
+                _run_variants_full(w, plan,
+                                   os.path.join(tmp, "full", "variants"))
 
     print(json.dumps({"kernels": [{
         "name": kern.name, "route": "cuda", "source": kern.source,
-        "replaces": kern.replaces, "launches": launches[kern.name],
+        "replaces": kern.replaces,
+        "launches": sum(by_path[kern.name].values()),
+        "launches_by_path": by_path[kern.name],
         **report[kern.name]} for kern in kernels]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -1378,7 +1567,7 @@ def _run_completeness_full(w: dict, cwd: str) -> dict:
     import torch
 
     import merfin_tpu_torch.modes.completeness as compl
-    from merfin_tpu.io.mkdb import KmerDB
+    from merfin_tpu_torch.io.mkdb import KmerDB
     from merfin_tpu_torch.ops.sorted_join import sorted_join_kernel
     from merfin_tpu_torch.ops.window_join import window_join_kernel
 

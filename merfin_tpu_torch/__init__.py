@@ -2,12 +2,15 @@
 
 A second package beside the JAX one, held to it byte for byte: the same
 CLI flags, output files and stderr lines.  Plain tensor code is PyTorch;
-the union sorted join that carries -hist is a hand-written CUDA kernel
-(``csrc/union_join.cu``) with a plain PyTorch version beside it.
+the sorted joins are hand-written CUDA kernels (``csrc/``) with plain
+PyTorch versions beside them.
 
-Framework-free host code (MKDB/FASTA/prob-table I/O, the 2-bit packers,
-the exact host tables of ``merfin_tpu.score``, checkpointing) is shared
-with ``merfin_tpu``; nothing here imports JAX.
+The port shares no code with ``merfin_tpu``: it keeps its own copies of
+the host modules it needs (MKDB/FASTA/prob-table/VCF I/O, the 2-bit
+packers, the exact host tables of the score layer, the variant
+enumeration, host scorer and selectors, checkpointing, and the native
+host library ``csrc/fastio.cpp``, built with g++ into
+``build/merfin_tpu_torch/``).  Nothing here imports JAX or merfin_tpu.
 """
 
 __version__ = "0.1.0"

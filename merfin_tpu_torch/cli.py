@@ -11,7 +11,7 @@ by swapping the binary name:
 -completeness on the single-value sorted join.  The variant modes
 (-filter, -polish, -better, -strict, -loose) score candidate paths with
 the fused device scorer or, for -debug, -nodevscore and -polish with a
--prob table, with the shared host scorer; both probe the union join.
+-prob table, with the host scorer; both probe the union join.
 What is not ported yet (-mesh, -hist -nosortjoin, a multi-host launch,
 building the sequence DB when -seqmers is absent, the database tools)
 exits with code 1 and a one-line error.  The device comes from
@@ -23,7 +23,7 @@ from __future__ import annotations
 import os
 import sys
 
-from merfin_tpu.config import MerfinConfig
+from merfin_tpu_torch.config import MerfinConfig
 
 _DB_SUBCOMMANDS = {
     "count", "print", "statistics", "histogram", "intersect", "union-sum",
@@ -215,10 +215,10 @@ def run(cfg: MerfinConfig) -> int:
 
     import torch
 
-    from merfin_tpu.io.fasta import SeqFile
-    from merfin_tpu.io.mkdb import KmerDB
-    from merfin_tpu.io.prob import load_prob_table
-    from merfin_tpu.table.lookup import build_lookup
+    from merfin_tpu_torch.io.fasta import SeqFile
+    from merfin_tpu_torch.io.mkdb import KmerDB
+    from merfin_tpu_torch.io.prob import load_prob_table
+    from merfin_tpu_torch.table.lookup import build_lookup
     from merfin_tpu_torch.device import get_device
 
     log = sys.stderr
@@ -305,7 +305,7 @@ def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
     """The variant modes, as the JAX CLI runs them on one device: the VCF
     and its clusters, the devscore rule, then the fused device scorer or
     the host scorer, both on one union table."""
-    from merfin_tpu.io.vcf import VcfFile
+    from merfin_tpu_torch.io.vcf import VcfFile
     from merfin_tpu_torch.modes.variants import run_variants
     from merfin_tpu_torch.ops.union_join import UnionTable, host_lookups
     from merfin_tpu_torch.variants.device_score import DeviceScorer

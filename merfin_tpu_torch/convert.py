@@ -14,7 +14,7 @@
     4 value byte planes of ``build_rec_np`` (join_kernel4.py:128-171).
 * A JAX ``DeviceScorer``'s union table (``_sj_union``, either form
   above) -> the same three arrays.
-* The value map and the bin tables: the host arrays of the shared
+* The value map and the bin tables: the host arrays of
   ``ValueMap``/``BinTable`` as they are, placed on the device; the
   scorer flavour of the value map (``ValueMap.device_arrays_scorer``)
   carries readK as int32 when the integer fast path holds.
@@ -107,7 +107,7 @@ def single_from_rec(rec, seg_first=None, n: int | None = None):
 
 
 def value_map_tensors(value_map, device):
-    """(read_k f64 [vcap+1], prob f64 [vcap+1]) of a shared ValueMap."""
+    """(read_k f64 [vcap+1], prob f64 [vcap+1]) of a ValueMap."""
     return (torch.from_numpy(np.ascontiguousarray(
                 value_map.read_k_host, np.float64)).to(device),
             torch.from_numpy(np.ascontiguousarray(
@@ -125,7 +125,7 @@ def value_map_scorer_tensors(value_map, device):
 
 
 def bin_table_tensors(bin_table, device):
-    """(undr, over) int32 [(rmax+1)*(amax+1)] of a shared BinTable."""
+    """(undr, over) int32 [(rmax+1)*(amax+1)] of a BinTable."""
     return (torch.from_numpy(np.ascontiguousarray(
                 bin_table.undr_host.reshape(-1), np.int32)).to(device),
             torch.from_numpy(np.ascontiguousarray(

@@ -6,7 +6,7 @@ The reference merge-joins the two DBs' sorted k-mer streams 64 ways
 globally sorted on disk, stream in blocks of (key, readK) through the
 single-value sorted join against the device-resident assembly table;
 asm-only k-mers are skipped exactly as in the reference
-(merfin-completeness.C:100-109).  readK comes from the shared host-exact
+(merfin-completeness.C:100-109).  readK comes from the host-exact
 value map on the host.
 
 One block is one device program: the join, ``und = readK - asmK`` where
@@ -25,10 +25,10 @@ from collections import deque
 import numpy as np
 import torch
 
-from merfin_tpu.io.mkdb import SLICES, KmerDB
-from merfin_tpu.score.kstar import ProbTable
-from merfin_tpu.score.value_map import ValueMap
-from merfin_tpu.utils.prefetch import prefetch_iter
+from merfin_tpu_torch.io.mkdb import SLICES, KmerDB
+from merfin_tpu_torch.score.kstar import ProbTable
+from merfin_tpu_torch.score.value_map import ValueMap
+from merfin_tpu_torch.utils.prefetch import prefetch_iter
 from merfin_tpu_torch.device import get_device
 from merfin_tpu_torch.ops.kmer_ops import bias
 from merfin_tpu_torch.ops.union_join import u32_to_int64

@@ -9,11 +9,11 @@ Parity targets (merfin-dump.C:72-104):
     (the last two columns are CUMULATIVE, unlike -hist),
   * sequences emit in input order (merfin.C:384).
 
-Rows are formatted by the shared native formatter on a thread pool (it
+Rows are formatted by the native formatter on a thread pool (it
 and gzip release the GIL), so chunk i formats while chunk i+1 computes;
 for .gz outputs each chunk is its own gzip member.  Small sequences pack
 into one group step, as in run_hist.  -resume restarts at a sequence
-boundary through the shared checkpoint.
+boundary through the checkpoint.
 """
 
 from __future__ import annotations
@@ -23,10 +23,10 @@ import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-from merfin_tpu import native
-from merfin_tpu.io.fasta import SeqFile
-from merfin_tpu.utils.checkpoint import Checkpoint, truncate_to
-from merfin_tpu.utils.prefetch import prefetch_iter
+from merfin_tpu_torch import native
+from merfin_tpu_torch.io.fasta import SeqFile
+from merfin_tpu_torch.utils.checkpoint import Checkpoint, truncate_to
+from merfin_tpu_torch.utils.prefetch import prefetch_iter
 from merfin_tpu_torch.modes.engine import SEG_MAX, KstarEngine
 
 

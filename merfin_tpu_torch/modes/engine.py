@@ -30,21 +30,21 @@ from collections import deque
 import numpy as np
 import torch
 
-from merfin_tpu.kcore.pack import pack_transfer_np
-from merfin_tpu.score.bin_table import BinTable
-from merfin_tpu.score.kover import finish_kover, kover_vmaxp
-from merfin_tpu.score.kstar import ProbTable, k_metric_np
-from merfin_tpu.score.value_map import ValueMap
-from merfin_tpu.utils.prefetch import prefetch_iter
 from merfin_tpu_torch import convert
 from merfin_tpu_torch.device import get_device
+from merfin_tpu_torch.kcore.pack import pack_transfer_np
 from merfin_tpu_torch.ops.kmer_ops import (U64_MAX, bias, kmer_windows,
                                           seg_from_marks, umin,
                                           unpack_transfer)
 from merfin_tpu_torch.ops.union_join import UnionTable, u32_to_int64
 from merfin_tpu_torch.score import bin_table as bin_ops
 from merfin_tpu_torch.score import value_map as vm_ops
-from merfin_tpu_torch.score.kover import kover_parts
+from merfin_tpu_torch.score.bin_table import BinTable
+from merfin_tpu_torch.score.kover import (finish_kover, kover_parts,
+                                          kover_vmaxp)
+from merfin_tpu_torch.score.kstar import ProbTable, k_metric_np
+from merfin_tpu_torch.score.value_map import ValueMap
+from merfin_tpu_torch.utils.prefetch import prefetch_iter
 
 NBINS = 1 << 14          # default k* bins per side
 PAD_CODE = 4
@@ -179,7 +179,7 @@ class KstarEngine:
     """-hist engine on the union sorted join.
 
     read_lookup/asm_lookup: host tables with ``keys``/``vals`` (the
-    shared ``build_lookup(..., host=True)``)."""
+    ``build_lookup(..., host=True)``)."""
 
     def __init__(self, read_lookup, asm_lookup, k: int, peak: float,
                  prob_table: ProbTable | None = None,
@@ -193,7 +193,7 @@ class KstarEngine:
         self.chunk = int(chunk)
         self.batch = int(batch)
         self.prob_table = prob_table
-        # getK and the bins come from host-exact tables (shared with the
+        # getK and the bins come from host-exact tables (copies of the
         # JAX package); the device only gathers from them
         self.value_map = ValueMap(peak, prob_table, max_value or (1 << 19),
                                   exact_max=exact_max)

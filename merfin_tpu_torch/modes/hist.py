@@ -17,11 +17,11 @@ from collections import deque
 
 import numpy as np
 
-from merfin_tpu.io.compressed import open_write_text
-from merfin_tpu.io.fasta import SeqFile
-from merfin_tpu.score.kstar import histo_qv
-from merfin_tpu.utils.checkpoint import Checkpoint
-from merfin_tpu.utils.prefetch import prefetch_iter
+from merfin_tpu_torch.io.compressed import open_write_text
+from merfin_tpu_torch.io.fasta import SeqFile
+from merfin_tpu_torch.score.kstar import histo_qv
+from merfin_tpu_torch.utils.checkpoint import Checkpoint
+from merfin_tpu_torch.utils.prefetch import prefetch_iter
 from merfin_tpu_torch.modes.engine import SEG_MAX, BinOverflow, KstarEngine
 
 

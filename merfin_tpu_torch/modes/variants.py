@@ -15,12 +15,14 @@ Two scoring paths:
     spawned process pool), budgeted batches dispatched as they fill, up
     to ``_MAX_INFLIGHT`` batches in flight, selection as each batch is
     fetched;
-  * the host scorer (shared ``merfin_tpu.variants.score``), whose table
+  * the host scorer (``merfin_tpu_torch/variants/score.py``), whose table
     lookups come from the caller (the CLI gives it the union join):
     VarPath lists, budgeted batches, -debug.
 
 The host helpers (cluster preparation, the enumeration and selection
-tasks, the debug writer) are the JAX package's, which import no JAX.
+tasks, the debug writer) are copies of the JAX package's
+(``merfin_tpu/modes/variants.py``).  This module imports no torch: the
+spawned enumeration workers import it to run their tasks.
 Not ported: the multi-host branches (striped part files, spans).
 """
 
@@ -31,21 +33,190 @@ import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-from merfin_tpu.io.fasta import SeqFile
-from merfin_tpu.io.vcf import VcfFile
-from merfin_tpu.modes.variants import (_POOL_MIN_PATHS, DebugWriter,
-                                       _enumerate_block_task,
-                                       _enumerate_task, _est_paths,
-                                       _select_block_task, _select_task,
-                                       prepare_cluster_args)
-from merfin_tpu.score.kstar import ProbTable
-from merfin_tpu.utils.checkpoint import Checkpoint, truncate_to
-from merfin_tpu.variants.score import (dispatch_blocks, fetch_blocks,
-                                       score_path_groups)
+from merfin_tpu_torch.io.compressed import open_write_text
+from merfin_tpu_torch.io.fasta import SeqFile, Sequence
+from merfin_tpu_torch.io.vcf import PosGT, VcfFile
+from merfin_tpu_torch.score.kstar import ProbTable
+from merfin_tpu_torch.utils.checkpoint import Checkpoint, truncate_to
+from merfin_tpu_torch.variants import select
+from merfin_tpu_torch.variants.enumerate import VarPath, enumerate_paths
+from merfin_tpu_torch.variants.score import (PathScore, dispatch_blocks,
+                                             fetch_blocks, score_path_groups)
 
 MODES = ("filter", "polish", "better", "strict", "loose")
 _LOOKAHEAD = 4       # clusters built ahead of the fused pipeline
 _MAX_INFLIGHT = 8    # dispatched batches not yet fetched
+_U32 = 1 << 32
+
+
+def cluster_window(pos_gt: PosGT, k: int, seq_len: int) -> tuple[int, int]:
+    """Padded window coordinates (merfin-variants.C:166-176), with the
+    reference's uint32 arithmetic at the boundaries."""
+    k_padd = k - 1
+    r_start = pos_gt.r_start
+    r_end = pos_gt.r_end
+    if r_start > k_padd:
+        r_start -= k_padd
+    else:
+        r_start = 0
+    # uint32: seq_len - k_padd underflows for seq_len < k_padd
+    limit = (seq_len - k_padd) % _U32
+    if r_end < limit:
+        r_end += k_padd
+    else:
+        r_end = seq_len
+    return r_start, r_end
+
+
+def prepare_cluster_args(
+    seq: Sequence, pos_gt: PosGT, k: int, comb: int, log=sys.stderr
+) -> tuple[int, int, tuple] | None:
+    """Window math + PANIC checks for one cluster; returns
+    (r_start, r_end, enumerate_paths args) or None on PANIC-skip.  The
+    (CPU-heavy) enumeration itself runs separately so -threads can fan it
+    out over worker processes."""
+    r_start, r_end = cluster_window(pos_gt, k, seq.length)
+
+    ref_idx = [(gt.pos - r_start) % _U32 for gt in pos_gt.gts]
+    ref_len = [gt.ref_len for gt in pos_gt.gts]
+    haps = [gt.alleles for gt in pos_gt.gts]
+
+    template = seq.copy_region(r_start, r_end)
+    if template is None:
+        print(f"PANIC : Invalid region specified: {seq.ident} : {r_start} - {r_end}",
+              file=log)
+        return None
+
+    if len(ref_idx) > comb:
+        print(f"PANIC : Combination {seq.ident}:{r_start}-{r_end} has too many "
+              f"variants ( found {len(pos_gt.gts)} > {comb} ) to evaluate. "
+              f"Consider filtering the vcf upfront. Skipping...", file=log)
+        return None
+
+    return r_start, r_end, (template.decode("ascii"), ref_idx, ref_len, haps)
+
+
+def prepare_cluster(
+    seq: Sequence, pos_gt: PosGT, k: int, comb: int, log=sys.stderr
+) -> tuple[int, int, list[VarPath]] | None:
+    """Enumerate one cluster; None on PANIC-skip."""
+    r = prepare_cluster_args(seq, pos_gt, k, comb, log=log)
+    if r is None:
+        return None
+    return r[0], r[1], _enumerate_task(r[2])
+
+
+_POOL_MIN_PATHS = 64   # ship a cluster to a worker only past this size
+
+
+def _est_paths(haps) -> int:
+    """Upper bound on enumerated paths for a cluster (product of allele
+    counts, capped)."""
+    est = 1
+    for h in haps:
+        est *= max(1, len(h))
+        if est >= 1 << 20:
+            break
+    return est
+
+
+def _enumerate_task(args):
+    """Worker task: REF/ALT path enumeration (merfin-variants.C:22-126)."""
+    if args is None:
+        return None
+    template, ref_idx, ref_len, haps = args
+    return enumerate_paths(template, ref_idx, ref_len, haps)
+
+
+def _enumerate_block_task(args):
+    """Worker task for the fused-scorer path: the array-native
+    enumeration (variants/enumerate_fast.py — no per-path Python
+    objects; ~15x the scalar traverse at comb=15 scale) builds the
+    PathBlock directly, so the stream assembly and adjust-plane build
+    parallelize across clusters and the result pickles as numpy
+    buffers."""
+    if args is None:
+        return None
+    enum_args, k = args
+    from merfin_tpu_torch.variants.enumerate_fast import build_path_block_fast
+
+    return build_path_block_fast(*enum_args, k)
+
+
+def _select_block_task(args):
+    """Array-native twin of _select_task over a PathBlock + its device-
+    reduced (num_m, totdk) arrays."""
+    import io as _io
+
+    mode, block, scores, pos_gt, k = args
+    nm, td = scores
+    warn = _io.StringIO()
+    res = select.select_block(mode, nm, td, block.lens, block.gtp,
+                              pos_gt, k, log=warn)
+    if isinstance(res, list):     # filter mode returns records
+        res = "".join(r.save() for r in res)
+    return res, warn.getvalue()
+
+
+def _select_task(args):
+    """Worker task: per-cluster mode selection -> (result text, warnings).
+
+    Pure function of the scored paths; loose-mode warnings come back as
+    text so the parent prints them in deterministic order.
+    """
+    import io as _io
+
+    mode, paths, scores, pos_gt, k = args
+    warn = _io.StringIO()
+    if mode == "polish":
+        res = select.best_variant(paths, scores, pos_gt, k)
+    elif mode == "better":
+        res = select.better_variant(paths, scores, pos_gt, k)
+    elif mode == "strict":
+        res = select.strict_polish(paths, scores, pos_gt, k)
+    elif mode == "loose":
+        res = select.loose_polish(paths, scores, pos_gt, k, log=warn)
+    else:
+        recs = select.best_filter(paths, scores, pos_gt, k)
+        res = "".join(r.save() for r in recs)
+    return res, warn.getvalue()
+
+
+class DebugWriter:
+    """Per-path debug log (merfin-variants.C:240-276).
+
+    The reference writes one gz per worker thread with thread-local
+    sequential varMerIds; here the analog writer unit is the process:
+    single-host runs land everything in `<out>.00.debug.gz`, multi-host
+    striped runs write `<out>.<RANK>.debug.gz` per rank (each covering
+    that rank's sequence stripe, rank-local sequential ids — exactly the
+    reference's per-thread split).
+    """
+
+    def __init__(self, out_name: str, writer_id: int = 0):
+        self.file = open_write_text(f"{out_name}.{writer_id:02d}.debug.gz")
+        self.var_mer_id = 0
+
+    def emit(self, ident: str, r_start: int, r_end: int, pos_gt: PosGT,
+             paths: list[VarPath], scores: list[PathScore]) -> None:
+        for p, s in zip(paths, scores):
+            parts = [
+                f"{self.var_mer_id}\t{ident}:{r_start}-{r_end}\t{p.seq}\t{s.num_m}\t"
+                f"{select.min_abs_k(s):.5f}\t{select.max_abs_k(s):.5f}\t"
+                f"{select.med_abs_k(s):.5f}\t{select.avg_abs_k(s):.5f}\t"
+                f"{select.tot_dk(s):.5f}\t"
+            ]
+            self.var_mer_id += 1
+            for i, alt_idx in enumerate(p.gt_path):
+                if alt_idx > 0:
+                    gt = pos_gt.gts[i]
+                    parts.append(f"{pos_gt.chrom} {gt.pos + 1} . "
+                                 f"{gt.alleles[0]} {gt.alleles[alt_idx]} . PASS . GT 1/1  ")
+            parts.append("\n")
+            self.file.write("".join(parts))
+
+    def close(self) -> None:
+        self.file.close()
 
 
 def _score_fused(mode, prepared, task_args, heavy, get_pool, scorer, k,

@@ -87,9 +87,12 @@ class Kernel:
     """One C entry point of a ``csrc`` library, bound with ctypes.
 
     Subclasses name the library (``lib``), the entry (``symbol``) and its
-    ``argtypes``; ``launches`` counts the launches this wrapper made."""
+    ``argtypes``, and optionally an ``init`` entry (no arguments, returns
+    a CUDA error code) run once before the first launch;
+    ``launches`` counts the launches this wrapper made."""
 
     name = lib = symbol = source = replaces = ""
+    init = ""
     argtypes: list = []
 
     def __init__(self):
@@ -99,7 +102,16 @@ class Kernel:
     def build(self):
         """Compile (if needed) and bind the kernel; returns the C entry."""
         if self._fn is None:
-            fn = getattr(load(self.lib), self.symbol)
+            lib = load(self.lib)
+            if self.init:
+                init = getattr(lib, self.init)
+                init.argtypes = []
+                init.restype = ctypes.c_int
+                err = init()
+                if err != 0:
+                    raise RuntimeError(
+                        f"{self.name}: {self.init} failed: CUDA error {err}")
+            fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn

@@ -6,12 +6,13 @@ Port of ``merfin_tpu/ops/join_kernel4.py`` (``SortJoinTableV4``,
 assembly DB with the read DB's sorted keys through it.
 
 Layout: sorted unique keys (u64 bit patterns in int64) and values (u32
-bit patterns in int32), structure of arrays; the TPU's u8 byte planes,
-fence rows and segment index existed only to make bf16 MXU products
-exact and to narrow each block's segments.
+bit patterns in int32), structure of arrays, and the fence index of
+``ops/union_join.py`` (every 16th key); the TPU's u8 byte planes, fence
+rows and segment index existed only to make bf16 MXU products exact and
+to narrow each block's segments.
 
 ``SortedJoinTable.lookup_sorted`` dispatches on the query's device: a
-CUDA tensor launches the binary-search kernel (``csrc/union_join.cu``,
+CUDA tensor launches the windowed kernel (``csrc/union_join.cu``,
 ``merfin_sorted_join``) or raises; a CPU tensor runs the plain PyTorch
 version.  There is no fallback from one to the other.
 """
@@ -25,7 +26,8 @@ import torch
 
 from merfin_tpu_torch.ops import _build
 from merfin_tpu_torch.ops.kmer_ops import bias
-from merfin_tpu_torch.ops.union_join import probe_plain
+from merfin_tpu_torch.ops.union_join import (FencedJoinKernel, fence_index,
+                                             probe_plain)
 
 _VP = ctypes.c_void_p
 
@@ -40,29 +42,27 @@ def lookup_plain(keys, vals, q, keys_biased=None):
                        torch.zeros((), dtype=torch.int32, device=q.device))
 
 
-class SortedJoinKernel(_build.Kernel):
-    """ctypes wrapper of ``csrc/union_join.cu:merfin_sorted_join``; the
-    window join's wrapper shares its signature and checks."""
+class SortedJoinKernel(FencedJoinKernel):
+    """ctypes wrapper of ``csrc/union_join.cu:merfin_sorted_join``."""
 
     name = "sorted_join"
-    lib = "union_join"
     symbol = "merfin_sorted_join"
-    source = "merfin_tpu_torch/csrc/union_join.cu"
     replaces = "merfin_tpu/ops/join_kernel4.py:33"
-    argtypes = [_VP, _VP, ctypes.c_longlong, _VP, ctypes.c_longlong, _VP,
-                _VP]
+    argtypes = [_VP, _VP, ctypes.c_longlong, _VP, _VP, ctypes.c_longlong,
+                _VP, _VP, _VP]
 
-    def __call__(self, keys, vals, q):
+    def __call__(self, keys, vals, fences, q):
         self.check(q, (keys, torch.int64), (vals, torch.int32),
-                   (q, torch.int64))
+                   (fences, torch.int64), (q, torch.int64))
         n, m = keys.shape[0], q.shape[0]
         if vals.shape[0] != n:
             raise ValueError(f"{self.name}: values must match keys")
         out = torch.empty(m, dtype=torch.int32, device=q.device)
         if m == 0:
             return out
-        self.launch(keys.data_ptr(), vals.data_ptr(), n, q.data_ptr(), m,
-                    out.data_ptr(),
+        win = self.windows(keys, fences, q)
+        self.launch(keys.data_ptr(), vals.data_ptr(), n, fences.data_ptr(),
+                    q.data_ptr(), m, out.data_ptr(), win.data_ptr(),
                     torch.cuda.current_stream(q.device).cuda_stream)
         return out
 
@@ -71,7 +71,7 @@ sorted_join_kernel = SortedJoinKernel()
 
 
 class SortedJoinTable:
-    """A single-value table on one device, probed by binary search.
+    """A single-value table on one device, probed by the windowed join.
 
     ``keys``/``vals``: host arrays, keys sorted ascending and unique."""
 
@@ -93,13 +93,23 @@ class SortedJoinTable:
         self.device = torch.device(device)
         self.keys = torch.from_numpy(keys.view(np.int64)).to(self.device)
         self.vals = torch.from_numpy(vals.view(np.int32)).to(self.device)
+        self.fences = self._index(self.keys)
         self._aux = None
 
     def tree(self):
         return (self.keys, self.vals)
 
     def nbytes(self) -> int:
-        return self.n * 12
+        return self.n * 12 + (0 if self.fences is None
+                              else self.fences.shape[0] * 8)
+
+    # the kernel's table-side index (built once, on the table's device)
+    def _index(self, keys):
+        return fence_index(keys)
+
+    def _kernel(self, keys, vals, q):
+        fences = self.fences if keys is self.keys else self._index(keys)
+        return self.kernel(keys, vals, fences, q)
 
     # the plain version; ``aux`` is what it precomputes from the table
     def _plain_aux(self, keys, vals):
@@ -121,7 +131,7 @@ class SortedJoinTable:
         order, any length); 0 for misses and u64::MAX sentinels."""
         keys, vals = tree
         if q.is_cuda:
-            return self.kernel(keys, vals, q)
+            return self._kernel(keys, vals, q)
         if keys is self.keys:
             return self.lookup_plain(q)
         return self._plain(keys, vals, q, self._plain_aux(keys, vals))

@@ -7,9 +7,10 @@ values of the same canonical mer (merfin-globals.C:101-110), so the two
 DBs merge into ONE key-sorted table with two value columns.
 
 Layout: sorted unique keys (u64 bit patterns in int64) plus read and asm
-values (u32 bit patterns in int32), structure of arrays.  The TPU's u8
-byte planes are not carried over: they existed only to make bf16 MXU
-products exact.
+values (u32 bit patterns in int32), structure of arrays, and a fence
+index (every ``FENCE_STRIDE``-th key) that the kernel searches first.
+The TPU's u8 byte planes are not carried over: they existed only to make
+bf16 MXU products exact.
 
 ``UnionTable.lookup2_sorted`` dispatches on the query's device: a CUDA
 tensor launches the hand-written kernel (``csrc/union_join.cu``) or
@@ -29,6 +30,15 @@ from merfin_tpu_torch.ops import _build
 from merfin_tpu_torch.ops.kmer_ops import U64_MAX, bias
 
 _VP = ctypes.c_void_p
+
+# keys a leaf of the fence index: csrc/union_join.cu's F (one 128-byte
+# line of keys); the kernel wrapper checks the two agree
+FENCE_STRIDE = 16
+
+
+def fence_index(keys: torch.Tensor) -> torch.Tensor:
+    """keys[::FENCE_STRIDE], contiguous, on the keys' device."""
+    return keys[::FENCE_STRIDE].contiguous()
 
 
 def union_merge_np(keys_a, vals_a, keys_b, vals_b):
@@ -87,19 +97,63 @@ def lookup2_plain(keys, read_vals, asm_vals, q, keys_biased=None):
             torch.where(hit, asm_vals[idx], zero))
 
 
-class UnionJoinKernel(_build.Kernel):
+class FencedJoinKernel(_build.Kernel):
+    """An entry of ``csrc/union_join.cu``'s windowed template: its tile
+    and fence geometry, the fence-index check and the window scratch."""
+
+    lib = "union_join"
+    source = "merfin_tpu_torch/csrc/union_join.cu"
+    init = "merfin_join_init"
+
+    def __init__(self):
+        super().__init__()
+        self._config = None
+
+    def config(self) -> dict:
+        """{"tile", "fence", "smem", "fences_per_query"} of the built
+        library."""
+        if self._config is None:
+            fn = _build.load(self.lib).merfin_join_config
+            fn.argtypes = [_VP]
+            fn.restype = None
+            out = (ctypes.c_longlong * 4)()
+            fn(ctypes.addressof(out))
+            self._config = dict(zip(
+                ("tile", "fence", "smem", "fences_per_query"), out))
+            if self._config["fence"] != FENCE_STRIDE:
+                raise RuntimeError(
+                    f"{self.name}: the library's fence stride "
+                    f"{self._config['fence']} != {FENCE_STRIDE}")
+        return self._config
+
+    def windows(self, keys, fences, q):
+        """Check the fence index against ``keys``; the int64 window
+        scratch (two entries a tile of queries)."""
+        if fences.shape[0] != -(-keys.shape[0] // FENCE_STRIDE):
+            raise ValueError(f"{self.name}: fence index has "
+                             f"{fences.shape[0]} entries for "
+                             f"{keys.shape[0]} keys")
+        if keys.data_ptr() % 16 or fences.data_ptr() % 16:
+            raise ValueError(f"{self.name}: keys and fences must be "
+                             f"16-byte aligned")
+        self.build()
+        tiles = -(-q.shape[0] // self.config()["tile"])
+        return torch.empty(2 * tiles, dtype=torch.int64, device=q.device)
+
+
+class UnionJoinKernel(FencedJoinKernel):
     """ctypes wrapper of ``csrc/union_join.cu:merfin_union_join``."""
 
-    name = lib = "union_join"
+    name = "union_join"
     symbol = "merfin_union_join"
-    source = "merfin_tpu_torch/csrc/union_join.cu"
     replaces = "merfin_tpu/ops/join_kernel4.py:264"
-    argtypes = [_VP, _VP, _VP, ctypes.c_longlong, _VP, ctypes.c_longlong,
-                _VP, _VP, _VP]
+    argtypes = [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP,
+                ctypes.c_longlong, _VP, _VP, _VP, _VP]
 
-    def __call__(self, keys, read_vals, asm_vals, q):
+    def __call__(self, keys, read_vals, asm_vals, fences, q):
         self.check(q, (keys, torch.int64), (read_vals, torch.int32),
-                   (asm_vals, torch.int32), (q, torch.int64))
+                   (asm_vals, torch.int32), (fences, torch.int64),
+                   (q, torch.int64))
         n, m = keys.shape[0], q.shape[0]
         if read_vals.shape[0] != n or asm_vals.shape[0] != n:
             raise ValueError("union_join: value columns must match keys")
@@ -107,14 +161,50 @@ class UnionJoinKernel(_build.Kernel):
         out_a = torch.empty(m, dtype=torch.int32, device=q.device)
         if m == 0:
             return out_r, out_a
+        win = self.windows(keys, fences, q)
         self.launch(keys.data_ptr(), read_vals.data_ptr(),
-                    asm_vals.data_ptr(), n, q.data_ptr(), m,
-                    out_r.data_ptr(), out_a.data_ptr(),
+                    asm_vals.data_ptr(), n, fences.data_ptr(), q.data_ptr(),
+                    m, out_r.data_ptr(), out_a.data_ptr(), win.data_ptr(),
                     torch.cuda.current_stream(q.device).cuda_stream)
         return out_r, out_a
 
 
+class BsearchJoinKernel(_build.Kernel):
+    """ctypes wrapper of ``csrc/union_join.cu:merfin_union_join_bsearch``,
+    the earlier design (a binary search over the whole key array for each
+    query), kept to measure the windowed design against; no path of the
+    port calls it.  ``vals1=None`` takes the single-value instantiation."""
+
+    name = "union_join_bsearch"
+    lib = "union_join"
+    symbol = "merfin_union_join_bsearch"
+    source = "merfin_tpu_torch/csrc/union_join.cu"
+    argtypes = [_VP, _VP, _VP, ctypes.c_longlong, _VP, ctypes.c_longlong,
+                _VP, _VP, ctypes.c_int, _VP]
+
+    def __call__(self, keys, vals0, vals1, q):
+        specs = [(keys, torch.int64), (vals0, torch.int32), (q, torch.int64)]
+        if vals1 is not None:
+            specs.append((vals1, torch.int32))
+        self.check(q, *specs)
+        n, m = keys.shape[0], q.shape[0]
+        cols = [vals0] if vals1 is None else [vals0, vals1]
+        if any(v.shape[0] != n for v in cols):
+            raise ValueError(f"{self.name}: value columns must match keys")
+        outs = [torch.empty(m, dtype=torch.int32, device=q.device)
+                for _ in cols]
+        if m:
+            self.launch(keys.data_ptr(), vals0.data_ptr(),
+                        None if vals1 is None else vals1.data_ptr(), n,
+                        q.data_ptr(), m, outs[0].data_ptr(),
+                        None if vals1 is None else outs[1].data_ptr(),
+                        len(cols),
+                        torch.cuda.current_stream(q.device).cuda_stream)
+        return tuple(outs)
+
+
 union_join_kernel = UnionJoinKernel()
+bsearch_join_kernel = BsearchJoinKernel()
 
 
 class UnionTable:
@@ -131,6 +221,7 @@ class UnionTable:
         self.asm_vals = torch.from_numpy(
             np.ascontiguousarray(asm_vals, np.uint32).view(np.int32)
         ).to(self.device)
+        self.fences = fence_index(self.keys)
         self._keys_biased = None
 
     @classmethod
@@ -138,7 +229,7 @@ class UnionTable:
         return cls(*union_merge_np(keys_a, vals_a, keys_b, vals_b), device)
 
     def nbytes(self) -> int:
-        return self.n * 16
+        return self.n * 16 + self.fences.shape[0] * 8
 
     def lookup2_plain(self, q):
         if self._keys_biased is None:
@@ -151,7 +242,7 @@ class UnionTable:
         stream (u64 order); (0, 0) for misses and u64::MAX sentinels."""
         if q.is_cuda:
             return union_join_kernel(self.keys, self.read_vals,
-                                     self.asm_vals, q)
+                                     self.asm_vals, self.fences, q)
         return self.lookup2_plain(q)
 
     def lookup2_np(self, q: np.ndarray):
@@ -180,7 +271,7 @@ class UnionTable:
 
 def host_lookups(table: UnionTable):
     """(lookup_read, lookup_asm), numpy u64 -> u64 callables for the
-    shared host scorer (``merfin_tpu.variants.score``), which calls
+    host scorer (``merfin_tpu_torch/variants/score.py``), which calls
     lookup_read(q) and then lookup_asm(q) on the same array: the second
     call takes the asm column of the first call's probe."""
     last: dict = {}

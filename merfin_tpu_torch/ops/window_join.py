@@ -17,11 +17,16 @@ plain PyTorch version.  There is no fallback from one to the other.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from merfin_tpu_torch.ops import _build
 from merfin_tpu_torch.ops.kmer_ops import U64_MAX, bias
-from merfin_tpu_torch.ops.sorted_join import SortedJoinKernel, SortedJoinTable
+from merfin_tpu_torch.ops.sorted_join import SortedJoinTable
 from merfin_tpu_torch.ops.union_join import u32_to_int64
+
+_VP = ctypes.c_void_p
 
 
 def prefix_sums(vals):
@@ -46,13 +51,29 @@ def lookup_plain(keys, vals, q, keys_biased=None, csum=None):
     return (s & 0xFFFFFFFF).to(torch.int32)
 
 
-class WindowJoinKernel(SortedJoinKernel):
+class WindowJoinKernel(_build.Kernel):
     """ctypes wrapper of ``csrc/window_join.cu:merfin_window_join``."""
 
     name = lib = "window_join"
     symbol = "merfin_window_join"
     source = "merfin_tpu_torch/csrc/window_join.cu"
     replaces = "merfin_tpu/ops/join_kernel.py:32"
+    argtypes = [_VP, _VP, ctypes.c_longlong, _VP, ctypes.c_longlong, _VP,
+                _VP]
+
+    def __call__(self, keys, vals, q):
+        self.check(q, (keys, torch.int64), (vals, torch.int32),
+                   (q, torch.int64))
+        n, m = keys.shape[0], q.shape[0]
+        if vals.shape[0] != n:
+            raise ValueError(f"{self.name}: values must match keys")
+        out = torch.empty(m, dtype=torch.int32, device=q.device)
+        if m == 0:
+            return out
+        self.launch(keys.data_ptr(), vals.data_ptr(), n, q.data_ptr(), m,
+                    out.data_ptr(),
+                    torch.cuda.current_stream(q.device).cuda_stream)
+        return out
 
 
 window_join_kernel = WindowJoinKernel()
@@ -65,6 +86,12 @@ class SortJoinTable(SortedJoinTable):
 
     kernel = window_join_kernel
     unique_keys = False
+
+    def _index(self, keys):
+        return None          # the window join streams its window
+
+    def _kernel(self, keys, vals, q):
+        return self.kernel(keys, vals, q)
 
     def _plain_aux(self, keys, vals):
         return bias(keys), prefix_sums(vals)

@@ -1,5 +1,7 @@
-"""Device tails of the score layer (counterpart of ``merfin_tpu.score``).
+"""The score layer of the torch port (counterpart of ``merfin_tpu.score``).
 
-The exact host tables (``ValueMap``, ``BinTable``, ``finish_kover``) are
-shared with the JAX package; these modules port only the device lookups.
+``kstar`` is a copy of the JAX package's host math; ``value_map``,
+``bin_table`` and ``kover`` hold the host tables (``ValueMap``,
+``BinTable``, ``finish_kover``, copies of the JAX package's) beside
+their device lookups.
 """

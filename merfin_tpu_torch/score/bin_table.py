@@ -1,18 +1,54 @@
-"""Histogram bins via the host-exact bin tables (port of
-``merfin_tpu/score/bin_table.py:BinTable.lookup_jnp``).
+"""Host-precomputed histogram bin tables and their device lookup (port of
+``merfin_tpu/score/bin_table.py``).
 
-In-range (readK, asmK) pairs take the shared ``BinTable``'s exact C bins;
-the rest take the IEEE **f32** fallback trunc((a/r - 0.9)/0.2), which is
-what the JAX package computes on every backend.  torch's f32 division is
+The -hist bin index trunc((asmK/readK - 1 + 0.1) / 0.2)
+(merfin-histogram.C:72,85) is decided by IEEE f64 division.  Both readK
+and asmK are integer-valued, so ``BinTable`` (a copy of the JAX
+package's host half) tabulates the decision on the host with exact
+semantics:
+
+    undr_table[r, a] = C bin of (readK=r, asmK=a)   r in [0,RMAX], a in [0,AMAX]
+    over_table[a, r] = C bin of (readK=r, asmK=a)   (the readK>asmK side)
+
+``lookup`` (the port of ``BinTable.lookup_jnp``) gathers them on the
+device.  In-range (readK, asmK) pairs take the exact C bins; the rest
+take the IEEE **f32** fallback trunc((a/r - 0.9)/0.2), which is what the
+JAX package computes on every backend.  torch's f32 division is
 correctly rounded on the CPU and on CUDA; the fallback stays f32 on
 purpose (it may sit one bin from the reference's f64, and is counted).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+RMAX = 64       # readK range covered exactly (peak-normalized copies)
+AMAX = 8192     # asmK range covered exactly
+
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+class BinTable:
+    def __init__(self, rmax: int = RMAX, amax: int = AMAX):
+        self.rmax = rmax
+        self.amax = amax
+        r = np.arange(rmax + 1, dtype=np.float64)[:, None]
+        a = np.arange(amax + 1, dtype=np.float64)[None, :]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            undr = np.trunc((a / r - 1.0 + 0.1) / 0.2)
+            over = np.trunc((r / a - 1.0 + 0.1) / 0.2)
+        # clamp negatives to 0: a (r, a) entry is negative only on the
+        # side that never selects it (undr needs a > r -> value > 0 and
+        # vice versa), so the clamp is unobservable — and it lets the
+        # device planes be u16 (max undr bin ~(amax-1+0.1)/0.2 < 2^16),
+        # halving the per-window gather bandwidth of the bin lookups
+        self.undr_host = np.maximum(
+            np.nan_to_num(undr, nan=0.0, posinf=0.0), 0.0).astype(np.int32)
+        self.over_host = np.maximum(
+            np.nan_to_num(over, nan=0.0, posinf=0.0), 0.0).astype(np.int32)
+        assert int(self.undr_host.max()) <= 0xFFFF
+        assert int(self.over_host.max()) <= 0xFFFF
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
-"""Integer QV* excess parts on the device (port of
-``merfin_tpu/score/kover.py:kover_parts``).
+"""Integer QV* excess parts on the device and their exact host finish
+(port of ``merfin_tpu/score/kover.py``).
 
 Each undr window's term (1 - readK/asmK) * prob is a function of small
-integers, so the device only COUNTS: windows per (raw v, asmK) for values
-inside the prob table, and per asmK the window count and readK sum for
-the rest.  The shared ``finish_kover`` turns the parts into koverCpy in
-exact IEEE on the host.  Windows outside the covered ranges keep the
-counted f64 fallback sum, whose value depends on summation order.
+integers, so the device only COUNTS (``kover_parts``): windows per (raw
+v, asmK) for values inside the prob table, and per asmK the window count
+and readK sum for the rest.  ``finish_kover`` (a copy of the JAX
+package's) turns the parts into koverCpy in exact IEEE on the host.
+Windows outside the covered ranges keep the counted f64 fallback sum,
+whose value depends on summation order.
 
 The counts come from one key sort plus a prefix sum read at the key
 boundaries: no scatter, no atomics, exact integers.
@@ -14,9 +15,40 @@ boundaries: no scatter, no atomics, exact integers.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-RMAX_PLAIN = 1 << 30
+VMAXP_CAP = 16   # prob-table rows covered exactly (GenomeScope tables
+                 # are ~4-10 rows; longer tables fall back per-window)
+RMAX_PLAIN = 1 << 30   # readK payload must fit the sort's int lane
+
+
+def kover_vmaxp(prob_table) -> int:
+    """Exact-v rows for this table (0 without a table)."""
+    if prob_table is None or len(prob_table) == 0:
+        return 0
+    return min(VMAXP_CAP, len(prob_table))
+
+
+def finish_kover(C: np.ndarray, N: np.ndarray, R: np.ndarray,
+                 fb_sum: float, prob_table, vmaxp: int,
+                 amax: int) -> float:
+    """Host: exact IEEE finish of the integer parts (+ the fallback)."""
+    A1 = amax + 1
+    a = np.arange(A1, dtype=np.float64)
+    total = 0.0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if vmaxp:
+            Cm = np.asarray(C, dtype=np.float64).reshape(vmaxp, A1)
+            ck = prob_table.copy_k[:vmaxp].astype(np.float64)[:, None]
+            cp = np.asarray(prob_table.copy_p[:vmaxp],
+                            dtype=np.float64)[:, None]
+            terms = (1.0 - ck / a[None, :]) * cp
+            total += float(np.sum(np.where(Cm > 0, Cm * terms, 0.0)))
+        Nf = np.asarray(N, dtype=np.float64)
+        Rf = np.asarray(R, dtype=np.float64)
+        total += float(np.sum(np.where(Nf > 0, Nf - Rf / a, 0.0)))
+    return total + float(fb_sum)
 
 
 def kover_parts(read_v, read_k, asm_k, prob, is_undr, vmaxp: int,

@@ -1,7 +1,7 @@
-"""Variant-path scoring of the torch port (counterpart of
+"""Variant-path enumeration and scoring of the torch port (counterpart of
 ``merfin_tpu.variants``).
 
-Enumeration, the host scorer's f64 math and the selectors are shared
-host code of ``merfin_tpu.variants``; only the fused device scorer is
-ported here.
+``enumerate``, ``enumerate_fast``, ``score`` (the host scorer) and
+``select`` are copies of the JAX package's host modules;
+``device_score`` is the port of its fused device scorer.
 """

@@ -30,14 +30,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from merfin_tpu.kcore.pack import pack_transfer_np
-from merfin_tpu.score.kstar import ProbTable
-from merfin_tpu.score.value_map import ValueMap
 from merfin_tpu_torch import convert
+from merfin_tpu_torch.kcore.pack import pack_transfer_np
 from merfin_tpu_torch.ops.kmer_ops import (U64_MAX, bias, kmer_windows, umin,
                                           unpack_transfer)
 from merfin_tpu_torch.ops.union_join import UnionTable, u32_to_int64
 from merfin_tpu_torch.score import value_map as vm_ops
+from merfin_tpu_torch.score.kstar import ProbTable
+from merfin_tpu_torch.score.value_map import ValueMap
 
 
 def _planes_from_bits(adj_bits, mark_bits, n: int, need_start: bool):
@@ -62,7 +62,7 @@ def _stream_math(value_map: ValueMap, vm, read_v, asm_v, valid, adjust,
     Integer path (vm[0] is the int32 readK map): missing and
     |readK-asmK| - |readK-asmK'| in int64, the host scorer's values.
     Otherwise f64, with the stale-prob forward fill reset at path starts
-    (varMer.C:60,84 semantics; see merfin_tpu.variants.score._flat_math)."""
+    (varMer.C:60,84 semantics; see variants/score.py:_flat_math)."""
     rk_map = vm[0]
     zero = torch.zeros((), dtype=torch.int64, device=read_v.device)
     if not rk_map.dtype.is_floating_point:

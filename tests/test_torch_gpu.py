@@ -1,7 +1,8 @@
 """Card-only tests of the torch port (marker ``gpu``): each CUDA kernel
-(union_join, sorted_join, window_join) vs its plain version, -hist,
--completeness, -dump and the variant modes on CUDA vs on the CPU, and
-the fused variant scorer on CUDA vs on the CPU.
+(union_join, sorted_join, window_join, and the earlier binary search)
+vs its plain version on random tables and on the windowed join's edge
+cases, -hist, -completeness, -dump and the variant modes on CUDA vs on
+the CPU, and the fused variant scorer on CUDA vs on the CPU.
 
 They skip where torch.cuda.is_available() is false.  This file imports
 no JAX, so it runs on a machine with a card and no JAX:
@@ -147,10 +148,10 @@ def test_device_scorer_cuda_matches_cpu(cuda, with_prob, tmp_path):
     the f64 totdk (sums in another order on CUDA) to 1e-9 relative; the
     union join ran as the kernel."""
     import chip_smoke as cs
-    from merfin_tpu.io.mkdb import KmerDB
-    from merfin_tpu.io.prob import load_prob_table
-    from merfin_tpu.variants.enumerate_fast import build_path_block_fast
-    from merfin_tpu.variants.score import dispatch_blocks
+    from merfin_tpu_torch.io.mkdb import KmerDB
+    from merfin_tpu_torch.io.prob import load_prob_table
+    from merfin_tpu_torch.variants.enumerate_fast import build_path_block_fast
+    from merfin_tpu_torch.variants.score import dispatch_blocks
     from merfin_tpu_torch.ops.union_join import UnionTable, union_join_kernel
     from merfin_tpu_torch.variants.device_score import DeviceScorer
 
@@ -195,3 +196,36 @@ def test_device_scorer_cuda_matches_cpu(cuda, with_prob, tmp_path):
     else:
         assert out["cuda"][1].dtype == np.int64
         np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(7))
+def test_windowed_joins_on_edge_cases(cuda, case):
+    """The windowed union and single-value joins and the earlier binary
+    search, each against its plain version, on the edge cases of
+    chip_smoke.join_edge_cases at the built constants."""
+    import chip_smoke as cs
+    from merfin_tpu_torch.ops.sorted_join import (SortedJoinTable,
+                                                  sorted_join_kernel)
+    from merfin_tpu_torch.ops.union_join import (UnionTable,
+                                                 bsearch_join_kernel,
+                                                 union_join_kernel)
+
+    cfg = union_join_kernel.config()
+    cases = cs.join_edge_cases(np.random.default_rng(case), cfg)
+    label, keys, v0, v1, q = cases[case]
+    qt = torch.from_numpy(q.view(np.int64)).to(cuda)
+    table = UnionTable(keys, v0, v1, cuda)
+    got = table.lookup2_sorted(qt)
+    want = table.lookup2_plain(qt)
+    old = bsearch_join_kernel(table.keys, table.read_vals, table.asm_vals, qt)
+    single = SortedJoinTable(keys, v0, cuda)
+    got1 = single.lookup_sorted(qt)
+    want1 = single.lookup_plain(qt)
+    old1 = bsearch_join_kernel(single.keys, single.vals, None, qt)
+    torch.cuda.synchronize()
+    for g, o, w in zip(got, old, want):
+        assert torch.equal(g, w), label
+        assert torch.equal(o, w), label
+    assert torch.equal(got1, want1) and torch.equal(old1[0], want1), label
+    assert sorted_join_kernel.launches > 0

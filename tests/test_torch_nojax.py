@@ -1,7 +1,8 @@
-"""The torch port never imports JAX: a fresh process imports every module
-of merfin_tpu_torch (and chip_smoke), runs a CPU -hist, -completeness,
--dump, -polish (fused scorer and host scorer) and -filter through the
-CLI, and finds no 'jax' in sys.modules."""
+"""The torch port never imports JAX nor the JAX package: a fresh process
+imports every module of merfin_tpu_torch (and chip_smoke), runs a CPU
+-hist, -completeness, -dump, -polish (fused scorer and host scorer) and
+-filter through the CLI, and finds neither 'jax' nor 'merfin_tpu' in
+sys.modules."""
 
 import os
 import pathlib
@@ -31,6 +32,9 @@ for mode, out in (("-hist", "out.hist"), ("-completeness", "unused"),
     assert rc == 0, (mode, rc)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not bad, bad
+pkg = sorted(m for m in sys.modules
+             if m == "merfin_tpu" or m.startswith("merfin_tpu."))
+assert not pkg, pkg
 print("NOJAX-OK")
 """
 
@@ -57,9 +61,28 @@ def test_port_runs_without_jax(tmp_path):
 
 def test_no_jax_import_in_sources():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    pkg = re.compile(r"^\s*(from|import) merfin_tpu(\.|\s|$)", re.M)
     files = list((REPO / "merfin_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "bin" / "merfin-tpu-torch",
               REPO / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
+        assert not pkg.search(f.read_text()), f
+
+
+def test_variant_worker_module_imports_no_torch():
+    """The spawned enumeration workers import merfin_tpu_torch.modes.variants
+    (and the enumeration it runs) without paying for a torch import."""
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "import merfin_tpu_torch.modes.variants as mv\n"
+            "mv._enumerate_block_task(((\"ACGTACGTAC\", [3], [1], [[\"T\", \"G\"]]), 5))\n"
+            "mv._enumerate_task((\"ACGTACGTAC\", [3], [1], [[\"T\", \"G\"]]))\n"
+            "bad = sorted(m for m in sys.modules if m == 'torch' or "
+            "m.startswith(('torch.', 'jax', 'merfin_tpu.')))\n"
+            "assert not bad, bad\n"
+            "print('NOTORCH-OK')\n" % str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "NOTORCH-OK"

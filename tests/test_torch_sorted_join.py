@@ -173,7 +173,8 @@ def test_lookup_sorted_with_foreign_tree():
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     z = torch.zeros(4, dtype=torch.int64)
-    for kern in (sorted_join_kernel, window_join_kernel):
+    for kern, index in ((sorted_join_kernel, [z[:1]]),
+                        (window_join_kernel, [])):
         with pytest.raises(ValueError):
-            kern(z, z.to(torch.int32), z)
+            kern(z, z.to(torch.int32), *index, z)
         assert kern.launches == 0

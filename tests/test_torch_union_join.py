@@ -156,6 +156,6 @@ def test_lookup2_plain_empty_table():
 def test_cuda_wrapper_refuses_cpu_tensors():
     z = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):
-        union_join_kernel(z, z.to(torch.int32), z.to(torch.int32), z)
+        union_join_kernel(z, z.to(torch.int32), z.to(torch.int32), z[:1], z)
     assert union_join_kernel.launches == 0
 
