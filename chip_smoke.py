@@ -11,12 +11,18 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               nvcc per source in parallel, with ptxas's register and
               spill lines;
   3. kernel   each kernel vs its plain PyTorch version, bit-exact, and
-              the earlier binary search (merfin_union_join_bsearch) vs the
-              same for union_join and sorted_join; at each timed shape
-              the median times of plain, kernel, kernel, bsearch,
-              bsearch, plain in turns, one torch.searchsorted of the
-              same biased queries (library_ms, a yardstick the port
-              never calls) and the bound (join_bytes over 3.35 TB/s).
+              its earlier design vs the same (the binary search
+              merfin_union_join_bsearch for union_join and sorted_join,
+              the PR 2 stream kernel merfin_window_join_stream for
+              window_join); at each timed shape the median CUDA-event
+              times of plain, kernel, kernel, earlier, earlier, plain in
+              turns, one torch.searchsorted of the same biased queries
+              (library_ms, a yardstick the port never calls), the
+              profiler's device time of kernel, earlier design and
+              yardstick (the time the card was busy, overlapping
+              kernels counted once; host launch time excluded) and the
+              bound
+              (join_bytes over 3.35 TB/s).
               union_join: the full world's union table against one
               -hist dispatch's sorted 2^20-window query stream with
               hits, misses and sentinels (timed), a ragged length, a
@@ -31,7 +37,12 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               near 2^32-1.  All three on join_edge_cases: k=32 keys with
               bit 63, n = 0 and 1, ragged lengths, heavy duplication,
               values >= 2^31, and tiles on each side of the windowed
-              join's dense/sparse threshold and shared-memory capacity;
+              join's dense/sparse threshold and shared-memory capacity.
+              window_join also on window_edge_cases, tables whose keys
+              repeat: runs of 2-5 equal keys, runs across chunk
+              boundaries and tile boundaries, a run of 5,000+ keys,
+              wrapping sums, windows on each side of its chunk size and
+              dense/wide threshold, sentinels and ragged lengths;
   4. oracle   small worlds through the CLI on CUDA: the verify recipe's
               world and a fragmented 200 kb world with a -prob table are
               held byte for byte to tests/refmodel.py:hist_mode; the same
@@ -76,8 +87,9 @@ The world is made from --seed with numpy; databases are written with the
 port's KmerDB.create.  The last three stdout lines are a JSON object of
 the kernels (launches in each main path, each run with the counts set
 to 0 just before it, and their sum; max |kernel - plain|; ms, plain_ms,
-bsearch_ms, library_ms and bound_ms at the main path's shape, and at
-every timed shape under "shapes"), the card's
+bsearch_ms or stream_ms (the earlier design), library_ms, the device_ms
+of each, and bound_ms at the main path's shape, and at every timed shape
+under "shapes"), the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and
 {"ok": true, "device": {...}}.
 
@@ -1056,33 +1068,75 @@ def join_bytes(keys, q, nv: int) -> int:
     return int(total)
 
 
-def time_turns(kernel_fn, plain_fn, reps: int, bsearch_fn=None) -> dict:
-    """Median ms of a kernel, its plain version and (where given) the
-    earlier binary search, taken in turns (plain, kernel, kernel,
-    bsearch, bsearch, plain); the lower median of each."""
+# the earlier design of each kernel, kept as a measured entry: its key
+# in the kernels line and its label
+OLD_LABELS = {"bsearch_ms": "binary search", "stream_ms": "PR 2 stream"}
+
+
+def time_turns(kernel_fn, plain_fn, reps: int, old=None) -> dict:
+    """Median ms of a kernel, its plain version and (where given) its
+    earlier design ``old`` = (key of OLD_LABELS, fn), taken in turns
+    (plain, kernel, kernel, old, old, plain); the lower median of each,
+    the earlier design's under its key."""
     p1 = _median_ms(plain_fn, reps)
     k1 = _median_ms(kernel_fn, reps)
     k2 = _median_ms(kernel_fn, reps)
-    b = ([_median_ms(bsearch_fn, reps) for _ in range(2)]
-         if bsearch_fn is not None else None)
+    o = [_median_ms(old[1], reps) for _ in range(2)] if old else None
     p2 = _median_ms(plain_fn, reps)
-    return dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                bsearch_ms=min(b) if b else None)
+    out = dict(ms=min(k1, k2), plain_ms=min(p1, p2))
+    if old:
+        out[old[0]] = min(o)
+    return out
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device ms a call of ``fn`` keeps the card busy, from
+    torch.profiler's trace of ``reps`` calls: the union of the intervals
+    of every CUDA kernel and copy it launches, so that kernels that
+    overlap (the window join's bounds pass and the join launched as its
+    programmatic dependent) count once.  The CUDA event times include
+    the host's launch time; this does not."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    assert busy > 0, "no device time in the profiler's trace"
+    return busy / reps / 1e3
 
 
 def measure(keys, q, nv: int, reps: int, kernel_fn, plain_fn,
-            bsearch_fn=None) -> dict:
+            old=None) -> dict:
     """time_turns plus the bound (join_bytes over the card's memory
-    rate) and the library yardstick: one torch.searchsorted of the same
-    biased queries into the same biased keys (it yields only the index;
-    the port never calls it)."""
+    rate), the library yardstick (one torch.searchsorted of the same
+    biased queries into the same biased keys; it yields only the index
+    and the port never calls it) and the profiler's device time of the
+    kernel, its earlier design and the yardstick (``*_device_ms``)."""
     import torch
 
     from merfin_tpu_torch.ops.kmer_ops import bias
 
-    out = time_turns(kernel_fn, plain_fn, reps, bsearch_fn)
+    out = time_turns(kernel_fn, plain_fn, reps, old)
     kb, qb = bias(keys), bias(q)
-    out["library_ms"] = _median_ms(lambda: torch.searchsorted(kb, qb), reps)
+
+    def library():
+        return torch.searchsorted(kb, qb)
+
+    out["library_ms"] = _median_ms(library, reps)
+    out["device_ms"] = device_ms(kernel_fn)
+    if old:
+        out[old[0].replace("_ms", "_device_ms")] = device_ms(old[1])
+    out["library_device_ms"] = device_ms(library)
     out["bytes"] = join_bytes(keys, q, nv)
     out["bound_ms"] = out["bytes"] / H100_BYTES_PER_S * 1e3
     out["bound_by"] = "bytes"
@@ -1090,11 +1144,15 @@ def measure(keys, q, nv: int, reps: int, kernel_fn, plain_fn,
 
 
 def fmt_times(t: dict) -> str:
-    s = f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms"
-    if t.get("bsearch_ms") is not None:
-        s += f", binary search {t['bsearch_ms']:.4f} ms"
-    return (s + f", torch.searchsorted {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bytes']} bytes)")
+    s = (f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain "
+         f"{t['plain_ms']:.4f} ms")
+    for key, label in OLD_LABELS.items():
+        if key in t:
+            dev = t[key.replace("_ms", "_device_ms")]
+            s += f", {label} {t[key]:.4f} ms (device {dev:.4f})"
+    return (s + f", torch.searchsorted {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
+            f"({t['bytes']} bytes)")
 
 
 def _u32_err(a, b) -> int:
@@ -1132,24 +1190,32 @@ def check_kernel(table, q_np: np.ndarray, reps: int):
         return err, None, hits
     return err, measure(table.keys, q, 2, reps,
                         lambda: table.lookup2_sorted(q),
-                        lambda: table.lookup2_plain(q), old), hits
+                        lambda: table.lookup2_plain(q),
+                        ("bsearch_ms", old)), hits
 
 
 def check_single(table, q_np: np.ndarray, reps: int):
-    """check_kernel for a single-value table (SortedJoinTable, with the
-    earlier binary search, or the window join's SortJoinTable)."""
+    """check_kernel for a single-value table: SortedJoinTable, with the
+    earlier binary search, or the window join's SortJoinTable, with its
+    earlier stream design (merfin_window_join_stream)."""
     import torch
 
+    from merfin_tpu_torch.ops.sorted_join import SortedJoinTable
     from merfin_tpu_torch.ops.union_join import bsearch_join_kernel
+    from merfin_tpu_torch.ops.window_join import stream_window_join_kernel
 
     q = torch.from_numpy(q_np.view(np.int64)).to(table.device)
     got = table.lookup_sorted(q)
     want = table.lookup_plain(q)
-    old = None
-    if table.fences is not None:
+    if type(table) is SortedJoinTable:
         def old():
             return bsearch_join_kernel(table.keys, table.vals, None, q)[0]
-        assert torch.equal(old(), want), "bsearch != plain"
+        old_entry = ("bsearch_ms", old)
+    else:
+        def old():
+            return stream_window_join_kernel(table.keys, table.vals, q)
+        old_entry = ("stream_ms", old)
+    assert torch.equal(old(), want), f"{OLD_LABELS[old_entry[0]]} != plain"
     torch.cuda.synchronize()
     err = _u32_err(got, want)
     assert torch.equal(got, want), f"{table.kernel.name} kernel != plain"
@@ -1158,7 +1224,7 @@ def check_single(table, q_np: np.ndarray, reps: int):
         return err, None, hits
     return err, measure(table.keys, q, 1, reps,
                         lambda: table.lookup_sorted(q),
-                        lambda: table.lookup_plain(q), old), hits
+                        lambda: table.lookup_plain(q), old_entry), hits
 
 
 def ratio_queries(rng, keys: np.ndarray, m: int, lo: int, hi: int):
@@ -1219,17 +1285,23 @@ def check_single_kernels(adb, rdb, rng, reps: int, edges: list) -> dict:
     cases += [(f"edge: {label}", keys, v0, q, None)
               for label, keys, v0, _, q in edges]
 
+    cfg = SortJoinTable.kernel.config()
+    say(f"  window join built with tile {cfg['tile']}, chunk {cfg['chunk']} "
+        f"keys, dense up to {cfg['wide']} keys a query")
+    runs = [(f"equal keys: {label}", keys, vals, q, None)
+            for label, keys, vals, q in window_edge_cases(rng, cfg)]
     report = {}
     for cls in (SortedJoinTable, SortJoinTable):
         name = cls.kernel.name
         errs, shapes = [], {}
-        for label, keys, vals, q, shape in cases:
+        for label, keys, vals, q, shape in cases + (
+                runs if cls is SortJoinTable else []):
             table = cls(keys, vals, "cuda")
             err, times, hits = check_single(table, q,
                                             reps if shape else 0)
             errs.append(err)
             msg = (f"  {name}, {label} ({table.n} keys, {q.size} queries, "
-                   f"{hits} hits): bit-exact")
+                   f"{hits} hits): bit-exact (earlier design too)")
             if shape:
                 shapes[shape] = times
                 msg += f"; {fmt_times(times)} (median of {reps}; {smi})"
@@ -1309,6 +1381,99 @@ def join_edge_cases(rng, cfg: dict) -> list:
     cases.append(("windows around the dense/sparse threshold and the "
                   "shared-memory fence capacity", keys, vals(n), vals(n),
                   np.concatenate(q)))
+    return cases
+
+
+def window_edge_cases(rng, cfg: dict) -> list:
+    """(label, keys u64, vals u32, sorted queries u64) for the window
+    join, whose table keys repeat and sum, at its built constants
+    (``cfg``: the kernel wrapper's config(), tile T, chunk C and wide W
+    keys a query): runs of 2-5 equal keys with tile boundaries inside
+    runs of equal queries, a ragged length and sentinels; then one table
+    of runs of 1-5 equal keys (full-range u32 values, so sums wrap) whose
+    tiles' windows sit on each side of the chunk size, of two chunks and
+    of the dense/wide threshold (W * T keys), each window with a run
+    across every chunk boundary it has, one window holding a run longer
+    than 4 chunks and 5,000 keys, and a wide one holding a run longer
+    than a chunk, ending in a tile of sentinels and a ragged tile; and
+    that table again with values near 2^32-1."""
+    tile, chunk, wide = cfg["tile"], cfg["chunk"], cfg["wide"]
+    sent = np.uint64(np.iinfo(np.uint64).max)
+    cases = []
+
+    # runs of 2-5 equal keys; the queries around every tile boundary all
+    # equal one run's key, so two tiles' windows share that run
+    base = np.unique(rng.integers(0, 1 << 42, size=6 * tile,
+                                  dtype=np.uint64))
+    keys = np.repeat(base, rng.integers(2, 6, size=base.size))
+    m = 8 * tile + 5
+    q = np.sort(np.concatenate([
+        base[rng.integers(0, base.size, size=m - m // 4 - 40)],
+        rng.integers(0, 1 << 42, size=m // 4, dtype=np.uint64),
+        np.full(40, sent)]))
+    for b in range(1, m // tile):
+        i = b * tile
+        y = keys[min(np.searchsorted(keys, q[i]), keys.size - 1)]
+        if y >= q[i] and y <= q[i + 5] and q[i + 5] != sent:
+            q[i - 5: i + 5] = y
+    cases.append(("runs of 2-5 equal keys, tile boundaries inside runs "
+                  "of equal queries, ragged, sentinels", keys,
+                  rng.integers(0, 1 << 32, size=keys.size).astype(np.uint32),
+                  q))
+
+    # runs of 1-5 keys (run r has key 1000 + 2r; odd values miss); one
+    # tile of queries per window [s, s + w), which starts and ends on run
+    # boundaries and has a run across each of its chunk boundaries; the
+    # windows are adjacent, since a tile's window reaches the next
+    # tile's first key
+    widths = [chunk - 1, chunk, chunk + 1, 2 * chunk, 2 * chunk + 1,
+              max(5000, 4 * chunk) + 64, wide * tile, wide * tile + 1,
+              2 * wide * tile]
+    lens, windows, pos = [], [], 0
+
+    def runs(total, cuts, long_run=0):
+        """run lengths summing to ``total``; no run ends at a cut; one
+        run of ``long_run`` keys in the middle"""
+        out, p = [], 0
+        while p < total:
+            n_run = long_run if long_run and p >= 16 else \
+                int(rng.integers(1, 6))
+            long_run = 0 if n_run == long_run else long_run
+            if p + n_run in cuts:
+                n_run += 2
+            n_run = min(n_run, total - p)
+            out.append(n_run)
+            p += n_run
+        return out
+
+    for w in widths:
+        cuts = set(range(chunk, w, chunk))
+        big = max(5000, 4 * chunk + 3) if w == widths[5] else \
+            (chunk + 7 if w == widths[-1] else 0)
+        windows.append((pos, w))
+        lens += runs(w, cuts, big)
+        pos += w
+    lens += [3] * (2 * tile)
+    ids = np.repeat(np.arange(len(lens), dtype=np.uint64), lens)
+    keys = np.uint64(1000) + np.uint64(2) * ids
+    qs = []
+    for s, w in windows:
+        inner = keys[s] + rng.integers(0, keys[s + w - 1] - keys[s] + 1,
+                                       size=tile - 2, dtype=np.uint64)
+        qs.append(np.sort(np.concatenate([[keys[s]], inner,
+                                          [keys[s + w - 1]]])))
+    tail = keys[pos:]
+    qs.append(np.sort(tail[rng.integers(0, tail.size, size=tile)]))
+    qs.append(np.full(tile + tile // 2 + 3, sent))
+    q = np.concatenate(qs)
+    for label, vals in (
+            ("windows around the chunk size and the dense/wide threshold, "
+             "runs across chunk boundaries, a run of 5,000+ keys",
+             rng.integers(0, 1 << 32, size=keys.size).astype(np.uint32)),
+            ("the same, values near 2^32-1",
+             np.uint32(0xFFFFFFFF)
+             - rng.integers(0, 1000, size=keys.size).astype(np.uint32))):
+        cases.append((label, keys, vals, q))
     return cases
 
 

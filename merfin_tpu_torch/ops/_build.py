@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "merfin_tpu_torch"
@@ -83,21 +85,43 @@ def build_all(names) -> None:
             f.result()
 
 
+def raw_stream(device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``, as an
+    int: what torch.cuda.current_stream(device).cuda_stream gives,
+    without building a Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 class Kernel:
     """One C entry point of a ``csrc`` library, bound with ctypes.
 
     Subclasses name the library (``lib``), the entry (``symbol``) and its
     ``argtypes``, and optionally an ``init`` entry (no arguments, returns
-    a CUDA error code) run once before the first launch;
-    ``launches`` counts the launches this wrapper made."""
+    a CUDA error code) run once before the first launch and a ``configs``
+    entry that fills one int64 for each of ``config_keys`` with the
+    library's built constants; ``launches`` counts the launches this
+    wrapper made."""
 
     name = lib = symbol = source = replaces = ""
-    init = ""
+    init = configs = ""
+    config_keys: tuple = ()
     argtypes: list = []
 
     def __init__(self):
         self.launches = 0
         self._fn = None
+        self._config = None
+
+    def config(self) -> dict:
+        """The built constants, by ``config_keys``."""
+        if self._config is None:
+            fn = getattr(load(self.lib), self.configs)
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = None
+            out = (ctypes.c_longlong * len(self.config_keys))()
+            fn(ctypes.addressof(out))
+            self._config = dict(zip(self.config_keys, out))
+        return self._config
 
     def build(self):
         """Compile (if needed) and bind the kernel; returns the C entry."""

@@ -63,7 +63,7 @@ class SortedJoinKernel(FencedJoinKernel):
         win = self.windows(keys, fences, q)
         self.launch(keys.data_ptr(), vals.data_ptr(), n, fences.data_ptr(),
                     q.data_ptr(), m, out.data_ptr(), win.data_ptr(),
-                    torch.cuda.current_stream(q.device).cuda_stream)
+                    _build.raw_stream(q.device))
         return out
 
 
@@ -93,23 +93,29 @@ class SortedJoinTable:
         self.device = torch.device(device)
         self.keys = torch.from_numpy(keys.view(np.int64)).to(self.device)
         self.vals = torch.from_numpy(vals.view(np.int32)).to(self.device)
-        self.fences = self._index(self.keys)
+        self.index = self._index(self.keys, self.vals)
         self._aux = None
 
     def tree(self):
         return (self.keys, self.vals)
 
     def nbytes(self) -> int:
-        return self.n * 12 + (0 if self.fences is None
-                              else self.fences.shape[0] * 8)
+        return self.n * 12 + self.index.numel() * self.index.element_size()
 
-    # the kernel's table-side index (built once, on the table's device)
-    def _index(self, keys):
+    # the kernel's table-side index (built once, on the table's device):
+    # here the fence index
+    def _index(self, keys, vals):
         return fence_index(keys)
 
+    def _index_of(self, keys, vals):
+        """The table's own index for its own tree, else one built for the
+        foreign (keys, vals)."""
+        if keys is self.keys and vals is self.vals:
+            return self.index
+        return self._index(keys, vals)
+
     def _kernel(self, keys, vals, q):
-        fences = self.fences if keys is self.keys else self._index(keys)
-        return self.kernel(keys, vals, fences, q)
+        return self.kernel(keys, vals, self._index_of(keys, vals), q)
 
     # the plain version; ``aux`` is what it precomputes from the table
     def _plain_aux(self, keys, vals):

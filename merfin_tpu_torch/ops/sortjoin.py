@@ -3,10 +3,12 @@
 one place.
 
 The JAX rule is kept as it is: the window join (v1) when the table has
-at most twice as many keys as one dispatch has queries (its cost grows
-with the window each block streams), the binary-search sorted join (v4)
-otherwise; ``prefer`` pins either.  The device is explicit; on the CPU
-either table runs its plain version.
+at most twice as many keys as one dispatch has queries (the TPU's v1
+streams each query block's whole window), the sorted join (v4)
+otherwise; ``prefer`` pins either.  On the card both are windowed
+kernels (``csrc/window_join.cu``, ``csrc/union_join.cu``); PERF.md §7
+records how the rule's choice fits them.  The device is explicit; on the
+CPU either table runs its plain version.
 """
 
 from __future__ import annotations

@@ -104,27 +104,15 @@ class FencedJoinKernel(_build.Kernel):
     lib = "union_join"
     source = "merfin_tpu_torch/csrc/union_join.cu"
     init = "merfin_join_init"
-
-    def __init__(self):
-        super().__init__()
-        self._config = None
+    configs = "merfin_join_config"
+    config_keys = ("tile", "fence", "smem", "fences_per_query")
 
     def config(self) -> dict:
-        """{"tile", "fence", "smem", "fences_per_query"} of the built
-        library."""
-        if self._config is None:
-            fn = _build.load(self.lib).merfin_join_config
-            fn.argtypes = [_VP]
-            fn.restype = None
-            out = (ctypes.c_longlong * 4)()
-            fn(ctypes.addressof(out))
-            self._config = dict(zip(
-                ("tile", "fence", "smem", "fences_per_query"), out))
-            if self._config["fence"] != FENCE_STRIDE:
-                raise RuntimeError(
-                    f"{self.name}: the library's fence stride "
-                    f"{self._config['fence']} != {FENCE_STRIDE}")
-        return self._config
+        cfg = super().config()
+        if cfg["fence"] != FENCE_STRIDE:
+            raise RuntimeError(f"{self.name}: the library's fence stride "
+                               f"{cfg['fence']} != {FENCE_STRIDE}")
+        return cfg
 
     def windows(self, keys, fences, q):
         """Check the fence index against ``keys``; the int64 window
@@ -165,7 +153,7 @@ class UnionJoinKernel(FencedJoinKernel):
         self.launch(keys.data_ptr(), read_vals.data_ptr(),
                     asm_vals.data_ptr(), n, fences.data_ptr(), q.data_ptr(),
                     m, out_r.data_ptr(), out_a.data_ptr(), win.data_ptr(),
-                    torch.cuda.current_stream(q.device).cuda_stream)
+                    _build.raw_stream(q.device))
         return out_r, out_a
 
 
@@ -199,7 +187,7 @@ class BsearchJoinKernel(_build.Kernel):
                         q.data_ptr(), m, outs[0].data_ptr(),
                         None if vals1 is None else outs[1].data_ptr(),
                         len(cols),
-                        torch.cuda.current_stream(q.device).cuda_stream)
+                        _build.raw_stream(q.device))
         return tuple(outs)
 
 
@@ -221,7 +209,8 @@ class UnionTable:
         self.asm_vals = torch.from_numpy(
             np.ascontiguousarray(asm_vals, np.uint32).view(np.int32)
         ).to(self.device)
-        self.fences = fence_index(self.keys)
+        # the kernel's table-side index: the fence index
+        self.index = fence_index(self.keys)
         self._keys_biased = None
 
     @classmethod
@@ -229,7 +218,7 @@ class UnionTable:
         return cls(*union_merge_np(keys_a, vals_a, keys_b, vals_b), device)
 
     def nbytes(self) -> int:
-        return self.n * 16 + self.fences.shape[0] * 8
+        return self.n * 16 + self.index.shape[0] * 8
 
     def lookup2_plain(self, q):
         if self._keys_biased is None:
@@ -242,7 +231,7 @@ class UnionTable:
         stream (u64 order); (0, 0) for misses and u64::MAX sentinels."""
         if q.is_cuda:
             return union_join_kernel(self.keys, self.read_vals,
-                                     self.asm_vals, self.fences, q)
+                                     self.asm_vals, self.index, q)
         return self.lookup2_plain(q)
 
     def lookup2_np(self, q: np.ndarray):

@@ -1,7 +1,7 @@
 """Card-only tests of the torch port (marker ``gpu``): each CUDA kernel
-(union_join, sorted_join, window_join, and the earlier binary search)
-vs its plain version on random tables and on the windowed join's edge
-cases, -hist, -completeness, -dump and the variant modes on CUDA vs on
+(union_join, sorted_join, window_join, and the earlier binary search and
+stream designs) vs its plain version on random tables, on the windowed
+joins' edge cases and on window tables whose keys repeat, -hist, -completeness, -dump and the variant modes on CUDA vs on
 the CPU, and the fused variant scorer on CUDA vs on the CPU.
 
 They skip where torch.cuda.is_available() is false.  This file imports
@@ -201,15 +201,18 @@ def test_device_scorer_cuda_matches_cpu(cuda, with_prob, tmp_path):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", range(7))
 def test_windowed_joins_on_edge_cases(cuda, case):
-    """The windowed union and single-value joins and the earlier binary
-    search, each against its plain version, on the edge cases of
-    chip_smoke.join_edge_cases at the built constants."""
+    """The windowed union and single-value joins, the window join and the
+    earlier designs (binary search, stream), each against its plain
+    version, on the edge cases of chip_smoke.join_edge_cases at the built
+    constants."""
     import chip_smoke as cs
     from merfin_tpu_torch.ops.sorted_join import (SortedJoinTable,
                                                   sorted_join_kernel)
     from merfin_tpu_torch.ops.union_join import (UnionTable,
                                                  bsearch_join_kernel,
                                                  union_join_kernel)
+    from merfin_tpu_torch.ops.window_join import (SortJoinTable,
+                                                  stream_window_join_kernel)
 
     cfg = union_join_kernel.config()
     cases = cs.join_edge_cases(np.random.default_rng(case), cfg)
@@ -223,9 +226,44 @@ def test_windowed_joins_on_edge_cases(cuda, case):
     got1 = single.lookup_sorted(qt)
     want1 = single.lookup_plain(qt)
     old1 = bsearch_join_kernel(single.keys, single.vals, None, qt)
+    window = SortJoinTable(keys, v0, cuda)
+    got_w = window.lookup_sorted(qt)
+    old_w = stream_window_join_kernel(window.keys, window.vals, qt)
     torch.cuda.synchronize()
     for g, o, w in zip(got, old, want):
         assert torch.equal(g, w), label
         assert torch.equal(o, w), label
     assert torch.equal(got1, want1) and torch.equal(old1[0], want1), label
+    assert torch.equal(got_w, want1) and torch.equal(old_w, want1), label
     assert sorted_join_kernel.launches > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(3))
+def test_window_join_on_equal_key_runs(cuda, case):
+    """The window join and its earlier stream design against the plain
+    version on tables whose keys repeat (chip_smoke.window_edge_cases at
+    the built tile, chunk and dense/wide threshold): runs across chunk
+    and tile boundaries, a run of 5,000+ keys, wrapping sums, sentinels,
+    ragged lengths; bit-exact."""
+    import chip_smoke as cs
+    from merfin_tpu_torch.ops.window_join import (SortJoinTable,
+                                                  stream_window_join_kernel,
+                                                  window_join_kernel)
+
+    cfg = window_join_kernel.config()
+    cases = cs.window_edge_cases(np.random.default_rng(case), cfg)
+    assert len(cases) == 3
+    label, keys, vals, q = cases[case]
+    assert np.unique(keys).size < keys.size
+    qt = torch.from_numpy(q.view(np.int64)).to(cuda)
+    table = SortJoinTable(keys, vals, cuda)
+    before = window_join_kernel.launches
+    got = table.lookup_sorted(qt)
+    want = table.lookup_plain(qt)
+    old = stream_window_join_kernel(table.keys, table.vals, qt)
+    torch.cuda.synchronize()
+    assert window_join_kernel.launches == before + 1
+    assert torch.equal(got, want), label
+    assert torch.equal(old, want), label
+    assert (want != 0).any()

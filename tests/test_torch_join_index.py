@@ -1,7 +1,8 @@
-"""The fence index of the windowed sorted-join kernel (CPU side): the
-union and single-value tables keep keys[::16] on their device and count
-it in nbytes(); the window join's table keeps none.  The kernel itself
-runs on the card only (tests/test_torch_gpu.py)."""
+"""The kernels' table-side indexes (CPU side): the union and
+single-value tables keep the fence index keys[::16] on their device and
+count it in nbytes(); the window join's table keeps the wrapped u32
+prefix column of its values instead.  The kernels themselves run on the
+card only (tests/test_torch_gpu.py)."""
 
 import numpy as np
 import pytest
@@ -25,8 +26,8 @@ def test_union_table_fences(n):
     keys, vals = _keys(n)
     t = UnionTable(keys, vals, vals[::-1].copy(), "cpu")
     want = keys[::FENCE_STRIDE]
-    assert t.fences.is_contiguous() and t.fences.dtype == torch.int64
-    np.testing.assert_array_equal(t.fences.numpy().view(np.uint64), want)
+    assert t.index.is_contiguous() and t.index.dtype == torch.int64
+    np.testing.assert_array_equal(t.index.numpy().view(np.uint64), want)
     assert t.nbytes() == 16 * n + 8 * want.size
 
 
@@ -35,10 +36,13 @@ def test_single_value_table_fences(n):
     keys, vals = _keys(n, seed=1)
     t = SortedJoinTable(keys, vals, "cpu")
     want = keys[::FENCE_STRIDE]
-    np.testing.assert_array_equal(t.fences.numpy().view(np.uint64), want)
+    np.testing.assert_array_equal(t.index.numpy().view(np.uint64), want)
     assert t.nbytes() == 12 * n + 8 * want.size
     w = SortJoinTable(keys, vals, "cpu")
-    assert w.fences is None and w.nbytes() == 12 * n
+    pre = np.concatenate([[0], np.cumsum(vals, dtype=np.uint32)])
+    assert w.index.dtype == torch.int32 and w.index.is_contiguous()
+    np.testing.assert_array_equal(w.index.numpy().view(np.uint32), pre)
+    assert w.nbytes() == 12 * n + 4 * (n + 1)
 
 
 def test_kernel_wrapper_rejects_a_wrong_fence_index():

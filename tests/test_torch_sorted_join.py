@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from merfin_tpu.ops.join_kernel import QB, SortJoinTable as JaxV1
+from merfin_tpu.ops.join_kernel import QB, SEG as SEG_V1
+from merfin_tpu.ops.join_kernel import SortJoinTable as JaxV1
 from merfin_tpu.ops.join_kernel4 import SEG, SortJoinTableV4 as JaxV4
 from merfin_tpu.ops.join_kernel5 import SortJoinTableV5 as JaxV5
 from merfin_tpu.ops.sortjoin import _JnpSortJoin
@@ -25,6 +26,7 @@ from merfin_tpu_torch.ops.sortjoin import build_sortjoin_table
 from merfin_tpu_torch.ops.union_join import u32_to_int64
 from merfin_tpu_torch.ops.window_join import (SortJoinTable,
                                               SortJoinTableV5,
+                                              stream_window_join_kernel,
                                               window_join_kernel)
 
 U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -100,23 +102,71 @@ def test_empty_table(route):
     np.testing.assert_array_equal(got, want.astype(np.uint64))
 
 
-@pytest.mark.parametrize("route", ["v1", "v5"])
-def test_window_join_sums_equal_keys(route):
-    """v1/v5's contract sums the values of equal keys, wrapping in u32;
-    the window table allows them (the binary-search table refuses)."""
-    k = 15
-    rng = np.random.default_rng(7)
+def _runs_table(rng, k, case):
+    """Keys with repeats and their values: "short" runs of at most 3
+    keys; "long", one run longer than JAX v1's SEG (5,000 keys, across
+    three of its segments) among runs of 1-5, values near 2^32 so every
+    sum of a run wraps."""
     base = np.unique(rng.integers(0, 1 << (2 * k), size=3000,
                                   dtype=np.uint64))
-    keys = np.sort(np.concatenate([base, base[::5], base[::7]]))
-    vals = rng.integers(1 << 30, 1 << 32, size=keys.size).astype(np.uint32)
+    if case == "short":
+        keys = np.sort(np.concatenate([base, base[::5], base[::7]]))
+        return base, keys, rng.integers(1 << 30, 1 << 32,
+                                        size=keys.size).astype(np.uint32)
+    reps = rng.integers(1, 6, size=base.size)
+    reps[base.size // 2] = 5000
+    assert reps.max() > SEG_V1
+    keys = np.repeat(base, reps)
+    return base, keys, (np.uint32(0xFFFFFFFF) - rng.integers(
+        0, 1 << 20, size=keys.size).astype(np.uint32))
+
+
+@pytest.mark.parametrize("route,case", [
+    pytest.param(r, c, id=r if c == "short" else f"{r}-{c}")
+    for c in ("short", "long") for r in ("v1", "v5")])
+def test_window_join_sums_equal_keys(route, case):
+    """v1/v5's contract sums the values of equal keys, wrapping in u32;
+    the window table allows them (the binary-search table refuses).
+    Runs of at most 3 keys, and a run longer than JAX's segment with
+    sums that wrap (the long run queried by many queries)."""
+    k = 15
+    rng = np.random.default_rng(7)
+    base, keys, vals = _runs_table(rng, k, case)
     q = _queries(rng, base, 2 * QB, k, 50)
+    if case == "long":
+        long_key = base[base.size // 2]
+        q = np.sort(np.concatenate([q[: 2 * QB - 100],
+                                    np.full(100, long_key)]))
     want = np.asarray(JAX[route](keys, vals, k).lookup_sorted(
         jnp.asarray(q))).astype(np.uint64)
-    np.testing.assert_array_equal(_port(PORT[route](keys, vals, "cpu"), q),
-                                  want)
+    got = _port(PORT[route](keys, vals, "cpu"), q)
+    np.testing.assert_array_equal(got, want)
+    if case == "long":
+        i = np.searchsorted(q, long_key)
+        run = vals[keys == long_key].astype(np.uint64).sum()
+        assert got[i] == run % (1 << 32) and run >= 1 << 32
     with pytest.raises(ValueError):
         SortedJoinTable(keys, vals, "cpu")
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_window_edge_cases_plain_matches_numpy(case):
+    """chip_smoke.window_edge_cases (the card's equal-key cases, built
+    here at small constants): the plain window join equals a numpy sum
+    of each query's equal keys, mod 2^32."""
+    import chip_smoke as cs
+
+    cfg = {"tile": 128, "chunk": 64, "wide": 8}
+    label, keys, vals, q = cs.window_edge_cases(
+        np.random.default_rng(case), cfg)[case]
+    got = _port(SortJoinTable(keys, vals, "cpu"), q)
+    uk, first = np.unique(keys, return_index=True)
+    sums = np.add.reduceat(vals.astype(np.uint64), first) % (1 << 32)
+    idx = np.minimum(np.searchsorted(uk, q), uk.size - 1)
+    want = np.where((uk[idx] == q) & (q != U64_MAX), sums[idx], 0)
+    np.testing.assert_array_equal(got, want, err_msg=label)
+    runs = np.diff(np.append(first, keys.size))
+    assert (runs[idx][want != 0] > 1).any()
 
 
 @pytest.mark.parametrize("prefer,query_windows,cls", [
@@ -174,7 +224,8 @@ def test_lookup_sorted_with_foreign_tree():
 def test_cuda_wrappers_refuse_cpu_tensors():
     z = torch.zeros(4, dtype=torch.int64)
     for kern, index in ((sorted_join_kernel, [z[:1]]),
-                        (window_join_kernel, [])):
+                        (window_join_kernel, []),
+                        (stream_window_join_kernel, [])):
         with pytest.raises(ValueError):
             kern(z, z.to(torch.int32), *index, z)
         assert kern.launches == 0
