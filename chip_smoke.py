@@ -81,7 +81,23 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               with the fused scorer and with the host scorer
               (-nodevscore, union join), each byte-identical to the
               first run; records, clusters/s, union_join launches, wall
-              and its split.
+              and its split;
+  9. count full   the counter on the card: (a) -completeness through the
+              CLI without -seqmers, which counts the 64 Mbp asm.fasta
+              into asm.fasta.meryl (equal file for file to the world's
+              asm.mkdb, made by torch.unique) and then gives phase 6's
+              lines, with sorted_join launches equal to the block count;
+              (b) a FASTQ of 150 bp reads at 20x of the true genome's
+              scaffold 0 from both strands with 0.5% substitutions:
+              `count k=21` in RAM (the device accumulator) against an
+              independent numpy count over the read rows (distinct,
+              total, a hash of keys and values), `count k=21
+              memory=0.25` (the device step and disk spills) byte-identical
+              to it, and `statistics` and `histogram` against numpy;
+              wall, bases/s, distinct k-mers and the split (parse and
+              pack, device, fetch and host merge, DB write) of the
+              assembly count and the in-RAM read count, the spill run's
+              wall.
 
 The world is made from --seed with numpy; databases are written with the
 port's KmerDB.create.  The last three stdout lines are a JSON object of
@@ -94,7 +110,7 @@ under "shapes"), the card's
 {"ok": true, "device": {...}}.
 
 Without CUDA the script fails (exit 1) and prints no result.  Phases 4
-to 8 also run on the CPU at a tiny size in tests/test_torch_hist.py
+to 9 also run on the CPU at a tiny size in tests/test_torch_hist.py
 (``MERFIN_PLATFORM=cpu``), which checks this harness without a card.
 """
 
@@ -102,6 +118,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
+import inspect
 import io
 import json
 import os
@@ -1644,6 +1662,11 @@ def main() -> int:
                 _run_variants_full(w, plan,
                                    os.path.join(tmp, "full", "variants"))
 
+        with phase("9 count full"):
+            by_path[sorted_join_kernel.name][
+                "-completeness, sequence DB counted"] = _run_count_full(
+                    w, os.path.join(tmp, "full", "count"), args.seed)
+
     print(json.dumps({"kernels": [{
         "name": kern.name, "route": "cuda", "source": kern.source,
         "replaces": kern.replaces,
@@ -1770,7 +1793,7 @@ def _run_completeness_full(w: dict, cwd: str) -> dict:
     wall = time.perf_counter() - log.t0
     launches = sorted_join_kernel.launches
 
-    lines = completeness_lines(err)
+    lines = w["completeness_lines"] = completeness_lines(err)
     for line in lines[-3:]:
         say(f"  {line}")
     assert lines[-3] == f"TOTAL readK:   {total:15.2f}", (lines[-3], total)
@@ -1855,36 +1878,57 @@ def _run_dump_full(w: dict, cwd: str) -> int:
 
 
 @contextlib.contextmanager
+def timers(targets: dict):
+    """Seconds the calling threads spend in each target, {key: (owner,
+    name)}: a module's function or a class's method, patched for the
+    block; a generator's time is that of its steps (calls nested in
+    another target count in both)."""
+    spent = dict.fromkeys(targets, 0.0)
+    saved = {key: inspect.getattr_static(owner, name)
+             for key, (owner, name) in targets.items()}
+
+    def steps(key, gen):
+        while True:
+            t = time.perf_counter()
+            try:
+                item = next(gen)
+            except StopIteration:
+                return
+            finally:
+                spent[key] += time.perf_counter() - t
+            yield item
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+            return steps(key, out) if inspect.isgenerator(out) else out
+        return run
+
+    for key, (owner, name) in targets.items():
+        fn = timed(key, getattr(owner, name))
+        setattr(owner, name, staticmethod(fn)
+                if isinstance(saved[key], staticmethod) else fn)
+    try:
+        yield spent
+    finally:
+        for key, (owner, name) in targets.items():
+            setattr(owner, name, saved[key])
+
+
 def variant_timers():
-    """Main-thread seconds of the variant driver's steps: stream assembly,
+    """Main-thread seconds of the variant loop's steps: stream assembly,
     packing and launch (``dispatch_blocks``), the fetch (device wait and
     copy, ``fetch_blocks``) and selection (``_select_block_task``); the
     rest of the loop waits for enumeration (build thread, pool)."""
     import merfin_tpu_torch.modes.variants as mv
 
-    spent = dict.fromkeys(("dispatch", "fetch", "select"), 0.0)
-    names = {"dispatch": "dispatch_blocks", "fetch": "fetch_blocks",
-             "select": "_select_block_task"}
-    saved = {key: getattr(mv, fn) for key, fn in names.items()}
-
-    def timed(key):
-        fn = saved[key]
-
-        def run(*a, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                spent[key] += time.perf_counter() - t
-        return run
-
-    for key, fn in names.items():
-        setattr(mv, fn, timed(key))
-    try:
-        yield spent
-    finally:
-        for key, fn in names.items():
-            setattr(mv, fn, saved[key])
+    return timers({"dispatch": (mv, "dispatch_blocks"),
+                   "fetch": (mv, "fetch_blocks"),
+                   "select": (mv, "_select_block_task")})
 
 
 def _run_variants_full(w: dict, plan: dict, cwd: str,
@@ -1966,6 +2010,230 @@ def _run_variants_full(w: dict, plan: dict, cwd: str,
         f"variants ({plan['n_snp']} spurious SNPs, {plan['n_multi']} 1/2 "
         f"sites, {len(plan['heavy'])} heavy clusters of "
         f"{plan['heavy_paths']} paths)")
+    return launches
+
+
+# ------------------------------------------------------------- counting
+
+MKDB_FILES = ("keys.npy", "vals.npy", "mkdb.json")
+
+
+def count_timers():
+    """Seconds in the counter's steps during a count: the whole of
+    count_files, on the parse thread reading and parsing the input
+    (SeqFile._stream) and packing its records into blocks
+    (iter_packed, parse included), on the main thread chunking the
+    blocks (_packed_chunks, waits on the parse thread included), the
+    device accumulator's add_codes (wire pack, upload, chunk program,
+    collapses) and drain, the wire pack, run fetches, host merges and
+    the DB write."""
+    import merfin_tpu_torch.count.counter as counter
+    from merfin_tpu_torch.io.fasta import SeqFile
+    from merfin_tpu_torch.io.mkdb import KmerDB
+
+    acc = counter._DeviceCountAcc
+    return timers({"count": (counter, "count_files"),
+                   "parse": (SeqFile, "_stream"),
+                   "blocks": (SeqFile, "iter_packed"),
+                   "chunks": (counter, "_packed_chunks"),
+                   "add": (acc, "add_codes"), "drain": (acc, "drain"),
+                   "pack": (counter, "pack_transfer_np"),
+                   "fetch": (acc, "_fetch_run"),
+                   "merge": (counter, "_merge_sorted"),
+                   "write": (KmerDB, "create")})
+
+
+def count_split(spent: dict) -> str:
+    """count_timers' seconds as the split of count_files' wall: parse and
+    pack (waiting on the parse thread, chunking, the wire pack), device
+    (upload, chunk programs, collapses and their syncs), fetch and host
+    merge, DB write; then the parts of parse and pack."""
+    fetch_merge = spent["fetch"] + spent["merge"]
+    device = spent["add"] + spent["drain"] - spent["pack"] - fetch_merge
+    parse_pack = spent["count"] - spent["write"] - device - fetch_merge
+    return (f"parse and pack {parse_pack:.2f} s, device {device:.2f} s, "
+            f"fetch and host merge {fetch_merge:.2f} s, DB write "
+            f"{spent['write']:.2f} s (main thread: chunking and waits on "
+            f"the parse thread {spent['chunks']:.2f} s, wire pack "
+            f"{spent['pack']:.2f} s; parse thread: read and parse "
+            f"{spent['parse']:.2f} s, block packing "
+            f"{spent['blocks'] - spent['parse']:.2f} s)")
+
+
+def run_db_tool(argv: list[str], cwd: str) -> tuple[str, str]:
+    """The port's CLI entry point for a database tool, in this process
+    -> (stdout, stderr)."""
+    from merfin_tpu_torch.cli import main
+
+    out, err = io.StringIO(), io.StringIO()
+    prev, _STDERR.f = _STDERR.f, err
+    try:
+        with contextlib.chdir(cwd), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(_STDERR):
+            rc = main(argv)
+    finally:
+        _STDERR.f = prev
+    if rc != 0:
+        raise RuntimeError(f"{argv[0]} failed:\n{err.getvalue()}")
+    return out.getvalue(), err.getvalue()
+
+
+def read_set(w: dict, d: str, seed: int, coverage: int = 20,
+             length: int = 150, sub_rate: float = 0.005):
+    """Phase 9's reads: ``coverage``x of the true genome's scaffold 0 in
+    ``length`` bp reads at uniform positions, half of them reverse
+    complemented, with ``sub_rate`` substitutions, written to
+    ``d``/reads.fq as fixed-width FASTQ records -> (path, codes u8
+    [reads, length])."""
+    rng = np.random.default_rng(seed + 9)
+    src = w["true"][w["starts"][0]: w["starts"][1]]
+    n = int(coverage * src.size // length)
+    pos = rng.integers(0, src.size - length + 1, size=n)
+    reads = src[pos[:, None] + np.arange(length)]
+    rev = rng.random(n) < 0.5
+    reads[rev] = 3 - reads[rev, ::-1]
+    sub = rng.random(reads.shape) < sub_rate
+    reads[sub] = (reads[sub] + rng.integers(1, 4, size=int(sub.sum()),
+                                            dtype=np.uint8)) % 4
+    digits = 9
+    rec = np.empty((n, 2 + digits + 1 + 2 * (length + 1) + 2), np.uint8)
+    rec[:, :2] = np.frombuffer(b"@r", np.uint8)
+    ids = np.arange(n)
+    for j in range(digits):
+        rec[:, 2 + j] = ord("0") + ids // 10 ** (digits - 1 - j) % 10
+    at = 2 + digits
+    rec[:, at] = ord("\n")
+    rec[:, at + 1: at + 1 + length] = _ACGT[reads]
+    at += 1 + length
+    rec[:, at: at + 3] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, at + 3: at + 3 + length] = ord("I")
+    rec[:, -1] = ord("\n")
+    path = os.path.join(_mkdir(d), "reads.fq")
+    rec.tofile(path)
+    return path, reads
+
+
+def numpy_read_counts(reads: np.ndarray, k: int):
+    """Independent count of the reads' canonical k-mers: the native
+    window extractor over the read rows, each ended by an invalid code so
+    that no window crosses a row, and np.unique -> (sorted keys u64,
+    counts u32)."""
+    from merfin_tpu_torch.kcore.pack import kmers_from_codes_np
+
+    rows = np.full((reads.shape[0], reads.shape[1] + 1), 4, np.uint8)
+    rows[:, :-1] = reads
+    fmer, rmer, valid = kmers_from_codes_np(rows.reshape(-1), k)
+    del rows
+    canon = np.minimum(fmer, rmer)[valid]
+    del fmer, rmer, valid
+    keys, counts = np.unique(canon, return_counts=True)
+    return keys, counts.astype(np.uint32)
+
+
+def db_digest(keys, vals) -> str:
+    """A hash of a DB's keys (u64) and values (u32)."""
+    h = hashlib.sha256(np.ascontiguousarray(keys, np.uint64).tobytes())
+    h.update(np.ascontiguousarray(vals, np.uint32).tobytes())
+    return h.hexdigest()
+
+
+def _same_mkdb(a: str, b: str) -> None:
+    for name in MKDB_FILES:
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            assert fa.read() == fb.read(), (a, b, name)
+
+
+def _run_count_full(w: dict, cwd: str, seed: int,
+                    memory_gb: float = 0.25) -> int:
+    """Phase 9: the counter through the CLI on the card.
+
+    (a) -completeness without -seqmers counts asm.fasta into
+        asm.fasta.meryl, equal to the world's asm.mkdb (torch.unique, an
+        independent path) file for file, and then gives phase 6's lines;
+    (b) `count k=21` of a read set (read_set) in RAM against the
+        independent numpy count, `count k=21 memory=<memory_gb>` (the
+        budgeted path: device step, spills, the 64-slice merge)
+        byte-identical to it, `statistics` and `histogram` against numpy.
+
+    Prints walls, rates, distinct k-mers and the splits; returns the
+    sorted_join launches of (a)."""
+    import torch
+
+    from merfin_tpu_torch.io.mkdb import KmerDB
+    from merfin_tpu_torch.ops.sorted_join import sorted_join_kernel
+
+    on_card = _on_card()
+    where = smi_line() if on_card else "CPU run"
+    k = w["k"]
+
+    argv = ["-completeness"] + w["argv"][1:5] + w["argv"][7:9]
+    a_dir = _mkdir(os.path.join(cwd, "asm"))
+    log = StampedLog()
+    sorted_join_kernel.launches = 0
+    with count_timers() as spent:
+        _, err, _ = run_port_inprocess(argv, a_dir, log, out="unused")
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - log.t0
+    launches = sorted_join_kernel.launches
+    assert ("-- No -seqmer given. Build sequence db as 'asm.fasta.meryl'."
+            in err.splitlines()), err[:2000]
+    built = os.path.join(a_dir, "asm.fasta.meryl")
+    _same_mkdb(built, w["argv"][6])
+    assert completeness_lines(err) == w["completeness_lines"]
+    n_blocks = -(-KmerDB(w["argv"][4]).distinct // (1 << 22))
+    if on_card:
+        assert launches == n_blocks, (launches, n_blocks)
+    distinct = KmerDB(built).distinct
+    say(f"  asm count: {w['bases']} bases, {distinct} distinct k-mers, "
+        f"equal to asm.mkdb file for file; count wall "
+        f"{spent['count']:.2f} s ({w['bases'] / spent['count']:.0f} "
+        f"bases/s): {count_split(spent)}; -completeness wall {wall:.1f} s, "
+        f"phase 6's 67 lines, sorted_join launches {launches} ({where})")
+
+    r_dir = os.path.join(cwd, "reads")
+    t0 = time.perf_counter()
+    fq, reads = read_set(w, r_dir, seed)
+    (n_reads, length), n_bases = reads.shape, reads.size
+    t1 = time.perf_counter()
+    keys, counts = numpy_read_counts(reads, k)
+    del reads
+    say(f"  reads: {n_reads} x {length} bp ({n_bases} bases, "
+        f"{os.path.getsize(fq)} bytes of FASTQ; {t1 - t0:.1f} s), numpy "
+        f"count {keys.size} distinct ({time.perf_counter() - t1:.1f} s)")
+    with count_timers() as spent:
+        run_db_tool(["count", f"k={k}", fq, "output=reads.mkdb"], r_dir)
+    if on_card:
+        torch.cuda.synchronize()
+    db = KmerDB(os.path.join(r_dir, "reads.mkdb"))
+    assert db.distinct == keys.size, (db.distinct, keys.size)
+    assert db.total == int(counts.sum(dtype=np.int64)), db.total
+    assert db_digest(db.keys, db.vals) == db_digest(keys, counts)
+    say(f"  read count in RAM: {db.distinct} distinct k-mers, total "
+        f"{db.total}, equal to the numpy count; wall {spent['count']:.2f} s "
+        f"({n_bases / spent['count']:.0f} bases/s): {count_split(spent)} "
+        f"({where})")
+
+    t0 = time.perf_counter()
+    _, err = run_db_tool(["count", f"k={k}", f"memory={memory_gb}", fq,
+                          "output=spill.mkdb"], r_dir)
+    spill_wall = time.perf_counter() - t0
+    merged = [ln for ln in err.splitlines() if ln.startswith("count: merging")]
+    assert merged, err[:2000]
+    _same_mkdb(os.path.join(r_dir, "spill.mkdb"), db.path)
+    say(f"  read count with memory={memory_gb}: {merged[0][7:]}, "
+        f"byte-identical to the in-RAM DB; wall {spill_wall:.2f} s ({where})")
+
+    out, _ = run_db_tool(["statistics", db.path], r_dir)
+    assert out == (f"Number of {k}-mers that are:\n"
+                   f"    unique   {int(np.count_nonzero(counts == 1)):>12}\n"
+                   f"    distinct {keys.size:>12}\n"
+                   f"    present  {int(counts.sum(dtype=np.int64)):>12}\n"), out
+    out, _ = run_db_tool(["histogram", db.path], r_dir)
+    v, c = np.unique(counts, return_counts=True)
+    assert out == "".join(f"{a}\t{b}\n" for a, b in zip(v, c)), out[:500]
+    say(f"  statistics and histogram ({v.size} values) equal numpy's")
     return launches
 
 

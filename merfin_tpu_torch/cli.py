@@ -7,15 +7,23 @@ by swapping the binary name:
     merfin-tpu-torch -hist -sequence asm.fasta -readmers read.mkdb \\
                      -seqmers asm.mkdb -peak 106.7 -output out.hist
 
--hist and -dump run on the union sorted join (``-sortjoin`` is accepted),
+-hist and -dump run on the union sorted join (``-sortjoin`` and
+``-nosortjoin`` are accepted; the JAX package's gather table is not
+ported, so -nosortjoin only drops the line that names the sorted join),
 -completeness on the single-value sorted join.  The variant modes
 (-filter, -polish, -better, -strict, -loose) score candidate paths with
 the fused device scorer or, for -debug, -nodevscore and -polish with a
--prob table, with the host scorer; both probe the union join.
-What is not ported yet (-mesh, -hist -nosortjoin, a multi-host launch,
-building the sequence DB when -seqmers is absent, the database tools)
-exits with code 1 and a one-line error.  The device comes from
-MERFIN_PLATFORM: ``cuda`` (default) or ``cpu``.
+-prob table, with the host scorer; both probe the union join.  Without
+-seqmers every mode first counts <seq.fasta> into <basename>.meryl on
+the device.  The meryl-analog database tools (count / import / print /
+export / statistics / histogram / intersect / union-sum / subtract /
+divide-round) live under the same binary:
+
+    merfin-tpu-torch count k=21 reads.fastq.gz output read.mkdb
+
+What is not ported yet (-mesh, a multi-host launch) exits with code 1
+and a one-line error.  The device comes from MERFIN_PLATFORM: ``cuda``
+(default) or ``cpu``.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ _DB_SUBCOMMANDS = {
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in _DB_SUBCOMMANDS:
-        return _not_ported(f"the database tool '{argv[0]}'")
+        return db_tool_main(argv)
     return merfin_main(argv)
 
 
@@ -136,11 +144,11 @@ def _usage() -> None:
         "\n"
         "  The PyTorch/CUDA port of merfin-tpu.  It accepts merfin-tpu's flags;\n"
         "  -hist, -dump, -completeness and the variant modes run (on the\n"
-        "  sorted-join kernels; -sortjoin is accepted), -resume restarts -hist,\n"
-        "  -dump and the variant modes at a sequence boundary.  -mesh,\n"
-        "  -hist -nosortjoin, multi-host launches, building <seq.mkdb> (-seqmers\n"
-        "  absent) and the database tools are not yet ported: use merfin-tpu\n"
-        "  for them.\n"
+        "  sorted-join kernels; -sortjoin and -nosortjoin are accepted), -resume\n"
+        "  restarts -hist, -dump and the variant modes at a sequence boundary.\n"
+        "  Without -seqmers, <seq.fasta>.meryl is counted from -sequence first.\n"
+        "  -mesh and multi-host launches are not yet ported: use merfin-tpu for\n"
+        "  them.\n"
         "\n"
         "  -filter / -better / -strict / -loose / -polish\n"
         "   Score the variant calls of <input.vcf> by the k-mers they create or\n"
@@ -183,6 +191,12 @@ def _usage() -> None:
         "   Output: per-slice lines, TOTAL readK, TOTAL undrcpy and\n"
         "           COMPLETENESS, in stderr.\n"
         "\n"
+        "  Databases are MKDB directories (build with: merfin-tpu-torch count k=21\n"
+        "  in.fq output db; add memory=GB to bound the counter with disk spill);\n"
+        "  import a meryl db via its text dump: merfin-tpu-torch import dump.txt\n"
+        "  output=db.  Other db tools: print statistics histogram intersect\n"
+        "  union-sum subtract divide-round export.\n"
+        "\n"
         "  Device: MERFIN_PLATFORM=cuda (default) or cpu.\n"
         "\n\n"
     )
@@ -194,15 +208,18 @@ def _db_max(db) -> int:
     return int(np.asarray(db.vals).max()) if db.distinct else 1
 
 
+_MULTI_HOST = "a multi-host launch (MERFIN_NUM_PROCESSES > 1)"
+
+
+def _multi_host() -> bool:
+    return int(os.environ.get("MERFIN_NUM_PROCESSES", "1") or "1") > 1
+
+
 def _unported(cfg: MerfinConfig) -> str | None:
     if cfg.mesh:
         return "-mesh"
-    if cfg.report_type == "hist" and cfg.sortjoin is False:
-        return "-nosortjoin (the gather lookup path)"
-    if int(os.environ.get("MERFIN_NUM_PROCESSES", "1") or "1") > 1:
-        return "a multi-host launch (MERFIN_NUM_PROCESSES > 1)"
-    if cfg.seq_db_name is None:
-        return "building the sequence database (-seqmers not given)"
+    if _multi_host():
+        return _MULTI_HOST
     return None
 
 
@@ -216,7 +233,7 @@ def run(cfg: MerfinConfig) -> int:
     import torch
 
     from merfin_tpu_torch.io.fasta import SeqFile
-    from merfin_tpu_torch.io.mkdb import KmerDB
+    from merfin_tpu_torch.io.mkdb import KmerDB, is_mkdb
     from merfin_tpu_torch.io.prob import load_prob_table
     from merfin_tpu_torch.table.lookup import build_lookup
     from merfin_tpu_torch.device import get_device
@@ -225,6 +242,22 @@ def run(cfg: MerfinConfig) -> int:
     device = get_device()
 
     prob = load_prob_table(cfg.prob_table, log=log) if cfg.prob_table else None
+
+    # Build the sequence DB if not provided (merfin-globals.C:166-189),
+    # under the JAX CLI's condition.
+    if cfg.report_type != "completeness" or cfg.seq_db_name is None:
+        if cfg.seq_db_name is None:
+            if cfg.read_db_name is None or not is_mkdb(cfg.read_db_name):
+                print(f"ERROR: read database '{cfg.read_db_name}' is not an MKDB "
+                      f"directory (build or import it first).", file=log)
+                return 1
+            k = KmerDB(cfg.read_db_name).k
+            cfg.seq_db_name = f"{os.path.basename(cfg.seq_name)}.meryl"
+            print(f"-- No -seqmer given. Build sequence db as '{cfg.seq_db_name}'.",
+                  file=log)
+            from merfin_tpu_torch.count.counter import count_files
+
+            count_files([cfg.seq_name], k, cfg.seq_db_name, log=log)
 
     read_db = KmerDB(cfg.read_db_name)
     asm_db = KmerDB(cfg.seq_db_name)
@@ -285,7 +318,8 @@ def run(cfg: MerfinConfig) -> int:
 
         print(f"-- Generate histogram of the k* metric to '{cfg.out_name}'.", file=log)
         engine = make_engine()
-        print("-- Using sorted-join lookup kernel for -hist.", file=log)
+        if cfg.sortjoin is not False:
+            print("-- Using sorted-join lookup kernel for -hist.", file=log)
         run_hist(engine, seq_file, cfg.out_name, log=log, resume=cfg.resume)
     elif cfg.report_type == "dump":
         from merfin_tpu_torch.modes.dump import run_dump
@@ -351,6 +385,107 @@ def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
         if scorer is not None:
             scorer.close()
     return 0
+
+
+# ---------------- database tools (meryl analog) ----------------
+
+def db_tool_main(argv: list[str]) -> int:
+    """The JAX CLI's database tools (merfin_tpu/cli.py:db_tool_main): the
+    same arguments, stdout and output DBs; ``count`` on the device."""
+    if _multi_host():
+        return _not_ported(_MULTI_HOST)
+    from merfin_tpu_torch.count import algebra
+    from merfin_tpu_torch.io import meryl_text
+    from merfin_tpu_torch.io.mkdb import KmerDB
+
+    cmd = argv[0]
+    args = argv[1:]
+
+    def split_kv(args):
+        opts, pos = {}, []
+        for a in args:
+            if "=" in a and not os.path.exists(a):
+                k, v = a.split("=", 1)
+                opts[k] = v
+            else:
+                pos.append(a)
+        return opts, pos
+
+    opts, pos = split_kv(args)
+    out = None
+    if "output" in opts:
+        out = opts["output"]
+    elif "output" in pos:
+        j = pos.index("output")
+        out = pos[j + 1]
+        pos = pos[:j] + pos[j + 2:]
+
+    mem = float(opts["memory"]) if "memory" in opts else None
+
+    def need(ok: bool, usage: str) -> None:
+        if not ok:
+            raise ValueError(usage)
+
+    if cmd == "count":
+        from merfin_tpu_torch.count.counter import count_files
+
+        k = int(opts.get("k", 21))
+        need(bool(out), "count: need output <db>")
+        count_files(pos, k, out, memory_gb=mem, log=sys.stderr)
+        return 0
+
+    if cmd == "import":
+        need(bool(out) and len(pos) == 1, "import: <text> output <db>")
+        meryl_text.import_text(pos[0], out, memory_gb=mem)
+        return 0
+
+    if cmd in ("print", "export"):
+        db = KmerDB(pos[0])
+        if out:
+            meryl_text.export_text(db, out)
+        else:
+            for i in range(db.distinct):
+                sys.stdout.write(
+                    f"{meryl_text.decode_kmer(int(db.keys[i]), db.k)}\t{int(db.vals[i])}\n")
+        return 0
+
+    if cmd == "statistics":
+        st = algebra.statistics(KmerDB(pos[0]))
+        sys.stdout.write(
+            f"Number of {st['k']}-mers that are:\n"
+            f"    unique   {st['unique']:>12}\n"
+            f"    distinct {st['distinct']:>12}\n"
+            f"    present  {st['present']:>12}\n")
+        return 0
+
+    if cmd == "histogram":
+        for v, c in sorted(algebra.histogram(KmerDB(pos[0])).items()):
+            sys.stdout.write(f"{v}\t{c}\n")
+        return 0
+
+    if cmd == "intersect":
+        need(bool(out) and len(pos) >= 2, "intersect: <db> <db>... output <db>")
+        algebra.intersect(out, *[KmerDB(p) for p in pos])
+        return 0
+
+    if cmd == "union-sum":
+        need(bool(out) and len(pos) >= 1, "union-sum: <db>... output <db>")
+        algebra.union_sum(out, *[KmerDB(p) for p in pos])
+        return 0
+
+    if cmd == "subtract":
+        need(bool(out) and len(pos) >= 2, "subtract: <db> <db>... output <db>")
+        algebra.subtract(out, *[KmerDB(p) for p in pos])
+        return 0
+
+    if cmd == "divide-round":
+        need(bool(out) and len(pos) == 2, "divide-round: <d> <db> output <db>")
+        d = float(pos[0])
+        algebra.divide_round(out, KmerDB(pos[1]), d)
+        return 0
+
+    sys.stderr.write(f"unknown db tool '{cmd}'\n")
+    return 1
 
 
 if __name__ == "__main__":

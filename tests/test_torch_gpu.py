@@ -1,8 +1,10 @@
 """Card-only tests of the torch port (marker ``gpu``): each CUDA kernel
 (union_join, sorted_join, window_join, and the earlier binary search and
 stream designs) vs its plain version on random tables, on the windowed
-joins' edge cases and on window tables whose keys repeat, -hist, -completeness, -dump and the variant modes on CUDA vs on
-the CPU, and the fused variant scorer on CUDA vs on the CPU.
+joins' edge cases and on window tables whose keys repeat, -hist,
+-completeness, -dump and the variant modes on CUDA vs on the CPU, the
+fused variant scorer on CUDA vs on the CPU, and the counter's device
+accumulator and device step vs the numpy counter.
 
 They skip where torch.cuda.is_available() is false.  This file imports
 no JAX, so it runs on a machine with a card and no JAX:
@@ -267,3 +269,62 @@ def test_window_join_on_equal_key_runs(cuda, case):
     assert torch.equal(got, want), label
     assert torch.equal(old, want), label
     assert (want != 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overflow", [False, True])
+@pytest.mark.parametrize("k", [21, 32])
+def test_device_count_accumulator(cuda, k, overflow, monkeypatch):
+    """The counter's device accumulator on the card against the numpy
+    counter (_chunk_canonical_counts_np into the host accumulator) over
+    a few chunks: collapses of 2 runs at a low minimum capacity, and,
+    with a low max_entries, the host overflow; then the budgeted path's
+    device step (_count_into) against the same."""
+    from merfin_tpu_torch.count.counter import (_Accumulator, _DeviceCountAcc,
+                                                _chunk_canonical_counts_np,
+                                                _count_into, _packed_chunks)
+    from merfin_tpu_torch.io.fasta import CodedSequence
+
+    monkeypatch.setenv("MERFIN_PLATFORM", "cuda")
+    rng = np.random.default_rng(k + overflow)
+    chunk = 1 << 14
+    codes = []
+    for i in range(60):
+        c = rng.integers(0, 4, size=int(rng.integers(50, 5000))).astype(np.uint8)
+        if i % 4 == 0:
+            c[rng.integers(0, c.size, size=5)] = 4
+        codes.append(c)
+    codes += codes[::3]                    # repeated k-mers: counts > 1
+
+    def seqs():
+        return (CodedSequence(f"s{i}", c) for i, c in enumerate(codes))
+
+    dacc = _DeviceCountAcc(k, chunk, collapse_runs=2)
+    assert dacc.device.type == "cuda"
+    dacc._MIN_CAP = 1 << 10
+    if overflow:
+        dacc.max_entries = 4 * chunk
+    caps = set()
+    for buf in _packed_chunks(seqs(), k, chunk):
+        dacc.add_codes(buf)
+        caps |= set(dacc.buckets)
+    assert (dacc._host_keys.size > 0) == overflow
+    keys, vals, total = dacc.drain()
+    assert len(caps) > 2
+
+    acc = _Accumulator()
+    for buf in _packed_chunks(seqs(), k, chunk):
+        acc.add(*_chunk_canonical_counts_np(buf, k))
+    hk, hv, ht = acc.result()
+    np.testing.assert_array_equal(keys, hk)
+    np.testing.assert_array_equal(vals, hv)
+    assert total == ht and int(hv.max()) > 1
+    if k == 32:
+        assert int(hk.max()) >= 1 << 63
+
+    step = _Accumulator()
+    _count_into(step, seqs(), k, chunk=chunk, use_device=True)
+    sk, sv, st = step.result()
+    np.testing.assert_array_equal(sk, hk)
+    np.testing.assert_array_equal(sv, hv)
+    assert st == ht

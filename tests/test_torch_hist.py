@@ -119,7 +119,9 @@ def test_chip_smoke_phases_on_cpu(tmp_path, monkeypatch):
     variant modes give its 3 corrections); the full world's -hist
     kasm/kmissing, -completeness totals and -dump per-sequence counts
     match the independent numpy counts, and the variant modes give the
-    planned records (heavy clusters of 576 paths, 3 pool workers)."""
+    planned records (heavy clusters of 576 paths, 3 pool workers); the
+    counter's phase counts the assembly (equal to asm.mkdb) and a read set
+    (equal to numpy's count, in RAM and through a 2 MB spilling budget)."""
     monkeypatch.setenv("MERFIN_PLATFORM", "cpu")
     cs.check_small_worlds(str(tmp_path), 0, 30_000, 40_000, "cpu")
     cs.check_small_modes(str(tmp_path), 0, 30_000, "cpu")
@@ -137,6 +139,8 @@ def test_chip_smoke_phases_on_cpu(tmp_path, monkeypatch):
     assert packed[0] == 1 << 16 and n_win <= packed[0]
     assert cs._run_variants_full(w, plan, str(tmp_path / "full" / "v"),
                                  threads=3) == 0
+    assert cs._run_count_full(w, str(tmp_path / "full" / "n"), 0,
+                              memory_gb=0.002) == 0
 
 
 def test_group_and_stream_paths_agree(tmp_path):
@@ -168,7 +172,6 @@ def test_group_and_stream_paths_agree(tmp_path):
 
 @pytest.mark.parametrize("extra,env", [
     (["-dump", "-mesh", "1x2"], {}), (["-hist", "-mesh", "1x2"], {}),
-    (["-hist", "-nosortjoin"], {}),
     (["-hist"], {"MERFIN_NUM_PROCESSES": "2"}),
     (["-completeness"], {"MERFIN_NUM_PROCESSES": "2"}),
     (["-polish", "-vcf", "x.vcf", "-mesh", "1x2"], {}),
@@ -184,16 +187,6 @@ def test_unported_paths_exit_1(extra, env, monkeypatch, capsys):
     err = capsys.readouterr().err
     assert rc == 1
     assert err.count("\n") == 1 and "not yet ported" in err
-
-
-def test_db_tools_and_missing_seqmers_exit_1(capsys):
-    from merfin_tpu_torch.cli import main
-
-    assert main(["count", "k=21", "x.fa", "output=db"]) == 1
-    assert main(["-hist", "-sequence", "x.fa", "-readmers", "r", "-peak",
-                 "2", "-output", "o"]) == 1
-    err = capsys.readouterr().err.splitlines()
-    assert len(err) == 2 and all("not yet ported" in ln for ln in err)
 
 
 def test_cuda_platform_without_card_raises(monkeypatch):

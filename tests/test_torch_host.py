@@ -26,6 +26,7 @@ from merfin_tpu.score import kover as j_kover
 from merfin_tpu.score import kstar as j_kstar
 from merfin_tpu.score import value_map as j_vm
 from merfin_tpu.table import lookup as j_lookup
+from merfin_tpu.tools import genomescope as j_gs
 from merfin_tpu.utils import checkpoint as j_ckpt
 from merfin_tpu.utils import prefetch as j_pre
 from merfin_tpu.variants import enumerate as j_enum
@@ -42,6 +43,7 @@ from merfin_tpu_torch.score import kover as p_kover
 from merfin_tpu_torch.score import kstar as p_kstar
 from merfin_tpu_torch.score import value_map as p_vm
 from merfin_tpu_torch.table import lookup as p_lookup
+from merfin_tpu_torch.tools import genomescope as p_gs
 from merfin_tpu_torch.utils import checkpoint as p_ckpt
 from merfin_tpu_torch.utils import prefetch as p_pre
 from merfin_tpu_torch.variants import enumerate as p_enum
@@ -344,6 +346,27 @@ def case_prefetch_and_config(tmp_path, monkeypatch):
         list(p_pre.prefetch_iter((1 / (2 - i) if i < 2 else int("x")
                                   for i in range(5))))
     assert vars(p_config.MerfinConfig()) == vars(j_config.MerfinConfig())
+
+
+def case_genomescope(tmp_path, monkeypatch):
+    """tests/test_genomescope.py's synthetic histogram through both
+    tools' main: the same -prob lookup table, byte for byte."""
+    x = np.arange(1, 300, dtype=np.float64)
+    y, _ = j_gs.model_4peak(x, 0.05, 0.004, 30.0, 0.6, 2e6, 21)
+    y = y + 3e6 * np.exp(-x / 1.5)
+    hist = np.vstack([np.stack([x, np.round(y)], axis=1), [300.0, 12345.0]])
+    path = tmp_path / "hist.tsv"
+    np.savetxt(path, hist, fmt="%d", delimiter="\t")
+    out = []
+    for mod in (j_gs, p_gs):
+        prefix = str(tmp_path / mod.__name__)
+        stdout = io.StringIO()
+        monkeypatch.setattr("sys.stdout", stdout)
+        assert mod.main([str(path), "21", prefix]) == 0
+        with open(f"{prefix}.lookup_table.txt", "rb") as f:
+            out.append((f.read(), stdout.getvalue().replace(prefix, "P")))
+    assert out[0][0].count(b"\n") > 100 and out[0][0] == out[1][0]
+    assert out[1][1] == out[0][1].replace("merfin-tpu ", "merfin-tpu-torch ")
 
 
 CASES = {name[5:]: fn for name, fn in globals().items()

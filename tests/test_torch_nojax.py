@@ -1,8 +1,9 @@
 """The torch port never imports JAX nor the JAX package: a fresh process
 imports every module of merfin_tpu_torch (and chip_smoke), runs a CPU
 -hist, -completeness, -dump, -polish (fused scorer and host scorer) and
--filter through the CLI, and finds neither 'jax' nor 'merfin_tpu' in
-sys.modules."""
+-filter through the CLI, then `count`, `statistics` and a -hist without
+-seqmers (which counts its sequence DB), and finds neither 'jax' nor
+'merfin_tpu' in sys.modules."""
 
 import os
 import pathlib
@@ -30,6 +31,11 @@ for mode, out in (("-hist", "out.hist"), ("-completeness", "unused"),
         if mode in ("-polish", "-filter") else []
     rc = main([mode] + argv + extra + ["-output", out])
     assert rc == 0, (mode, rc)
+# the database tools and a -hist that counts its sequence DB
+assert main(["count", "k=15", argv[1], "output=asm_count.mkdb"]) == 0
+assert main(["statistics", "asm_count.mkdb"]) == 0
+at = argv.index("-seqmers")
+assert main(["-hist"] + argv[:at] + argv[at + 2:] + ["-output", "noseq.hist"]) == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not bad, bad
 pkg = sorted(m for m in sys.modules
@@ -57,6 +63,13 @@ def test_port_runs_without_jax(tmp_path):
     pol = [(tmp_path / f"{o}.polish.vcf").read_bytes() for o in ("fused", "host")]
     assert pol[0] == pol[1] and cs.vcf_records(pol[0]) == 3
     assert cs.vcf_records((tmp_path / "out.filter.vcf").read_bytes()) == 3
+    assert "    distinct         1986\n" in proc.stdout
+    for name in ("keys.npy", "vals.npy", "mkdb.json"):
+        want = (tmp_path / "asm.mkdb" / name).read_bytes()
+        assert (tmp_path / "asm_count.mkdb" / name).read_bytes() == want
+        assert (tmp_path / "asm.fasta.meryl" / name).read_bytes() == want
+    assert (tmp_path / "noseq.hist").read_bytes() == \
+        (tmp_path / "out.hist").read_bytes()
 
 
 def test_no_jax_import_in_sources():
@@ -64,7 +77,8 @@ def test_no_jax_import_in_sources():
     pkg = re.compile(r"^\s*(from|import) merfin_tpu(\.|\s|$)", re.M)
     files = list((REPO / "merfin_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "bin" / "merfin-tpu-torch",
-              REPO / "tests" / "test_torch_gpu.py"]
+              REPO / "tests" / "test_torch_gpu.py",
+              REPO / "scripts" / "count_phase.py"]
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
