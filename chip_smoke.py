@@ -34,7 +34,13 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               dispatch, timed), a v1-ratio table of 2^21 keys against
               2^20 queries with 10% misses and 1% sentinels (timed), a
               ragged length, a k=31 table with keys near 2^62, values
-              near 2^32-1.  All three on join_edge_cases: k=32 keys with
+              near 2^32-1.  sorted_join also at the mesh paths' shapes
+              (timed): each shard of phase 10's 1x1 meshes is a whole
+              DB's table, so the full read-DB and asm tables against one
+              -hist/-dump mesh dispatch's sorted 2^19-window stream with
+              misses and sentinels, and against the heavy span's 2^23
+              windows as the mesh variant scorer probes it.  All three
+              on join_edge_cases: k=32 keys with
               bit 63, n = 0 and 1, ragged lengths, heavy duplication,
               values >= 2^31, and tiles on each side of the windowed
               join's dense/sparse threshold and shared-memory capacity.
@@ -97,7 +103,22 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               wall, bases/s, distinct k-mers and the split (parse and
               pack, device, fetch and host merge, DB write) of the
               assembly count and the in-RAM read count, the spill run's
-              wall.
+              wall;
+ 10. mesh full   the mesh paths, which build no union table (one
+              sorted-join table a DB and shard, every shard probe a
+              sorted_join launch): -hist, -completeness, -dump (phase
+              7's cut) and -polish on light.vcf (fused ShardedScorer)
+              through the CLI with -mesh 1x1, each byte-identical to its
+              single-device phase (and its stderr lines); -hist on
+              make_mesh(devices=[cuda:0] * 8, data=2) through the API,
+              equal to phase 5's histogram; -mesh 2x4 on the CLI exits 1
+              ("needs 8 devices; 1 available"); walls, splits and
+              sorted_join launches of each;
+ 11. two processes   striped MERFIN_NUM_PROCESSES=2 launches, both ranks
+              on cuda:0 with gloo merges: -hist of the full world (equal
+              to phase 5's histogram) and -polish, -dump and `count` of a
+              --small-bases parity world, each byte-identical to one
+              process, with no part, checkpoint or spill file left.
 
 The world is made from --seed with numpy; databases are written with the
 port's KmerDB.create.  The last three stdout lines are a JSON object of
@@ -110,7 +131,7 @@ under "shapes"), the card's
 {"ok": true, "device": {...}}.
 
 Without CUDA the script fails (exit 1) and prints no result.  Phases 4
-to 9 also run on the CPU at a tiny size in tests/test_torch_hist.py
+to 11 also run on the CPU at a tiny size in tests/test_torch_hist.py
 (``MERFIN_PLATFORM=cpu``), which checks this harness without a card.
 """
 
@@ -324,12 +345,14 @@ _COUNTED_RUN = """
 import json, sys
 sys.path.insert(0, {repo!r})
 import {pkg}.modes.engine as eng
+import {pkg}.parallel.engine as peng
 made = []
-class Recording(eng.KstarEngine):
-    def __init__(self, *a, **kw):
-        super().__init__(*a, **kw)
-        made.append(self)
-eng.KstarEngine = Recording
+for mod, name in ((eng, "KstarEngine"), (peng, "ShardedKstarEngine")):
+    class Recording(getattr(mod, name)):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    setattr(mod, name, Recording)
 from {pkg}.cli import main
 rc = main(sys.argv[1:])
 print(json.dumps({{c: getattr(made[-1], c) for c in {counters!r}}}
@@ -383,22 +406,26 @@ def run_port_subprocess(argv, cwd: str, platform: str, out: str = "out.hist"):
 
 @contextlib.contextmanager
 def recording_engines():
-    """Record every port KstarEngine the CLI creates (for its counters)."""
+    """Record every port engine (KstarEngine, ShardedKstarEngine) the CLI
+    creates (for its counters)."""
     import merfin_tpu_torch.modes.engine as eng
+    import merfin_tpu_torch.parallel.engine as peng
 
     made = []
-    base = eng.KstarEngine
+    bases = ((eng, "KstarEngine"), (peng, "ShardedKstarEngine"))
+    saved = [getattr(mod, name) for mod, name in bases]
+    for (mod, name), base in zip(bases, saved):
+        class Recording(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
 
-    class Recording(base):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            made.append(self)
-
-    eng.KstarEngine = Recording
+        setattr(mod, name, Recording)
     try:
         yield made
     finally:
-        eng.KstarEngine = base
+        for (mod, name), base in zip(bases, saved):
+            setattr(mod, name, base)
 
 
 class StampedLog(io.StringIO):
@@ -1265,14 +1292,18 @@ def kernel_report(errs: list, shapes: dict, main: str) -> dict:
         shapes=shapes)
 
 
-def check_single_kernels(adb, rdb, rng, reps: int, edges: list) -> dict:
+def check_single_kernels(adb, rdb, rng, reps: int, edges: list,
+                         mesh_q: list) -> dict:
     """Phase 3, the single-value kernels (sorted_join, window_join) vs
     their plain versions, bit-exact (sorted_join's earlier binary search
     too): the full world's asm table against one 2^22 block of sorted
     read-DB keys (the completeness dispatch, timed), a v1-ratio table of
     2^21 keys against 2^20 sorted queries (timed) and at a ragged
     length, a k=31 table with keys near 2^62, values near 2^32-1, and
-    the ``edges`` of join_edge_cases.  -> {kernel name: report}."""
+    the ``edges`` of join_edge_cases.  sorted_join also at the mesh
+    paths' shapes (timed): the full read-DB and asm tables against each
+    (path, label, sorted queries) of ``mesh_q``.  -> {kernel name:
+    report}."""
     import torch
 
     from merfin_tpu_torch.ops.sorted_join import SortedJoinTable
@@ -1302,6 +1333,12 @@ def check_single_kernels(adb, rdb, rng, reps: int, edges: list) -> dict:
     cases.append(("values near 2^32-1", rk, big, rq, None))
     cases += [(f"edge: {label}", keys, v0, q, None)
               for label, keys, v0, _, q in edges]
+    # a 1x1 mesh's shard is the whole DB's table: -hist and -dump probe
+    # both tables with each dispatch, the variant scorer with each span
+    mesh_cases = [(f"{path}: {db} table x {label}", d.keys, d.vals, q,
+                   f"{path}, {db} table")
+                  for path, label, q in mesh_q
+                  for db, d in (("read-DB", rdb), ("asm", adb))]
 
     cfg = SortJoinTable.kernel.config()
     say(f"  window join built with tile {cfg['tile']}, chunk {cfg['chunk']} "
@@ -1313,7 +1350,7 @@ def check_single_kernels(adb, rdb, rng, reps: int, edges: list) -> dict:
         name = cls.kernel.name
         errs, shapes = [], {}
         for label, keys, vals, q, shape in cases + (
-                runs if cls is SortJoinTable else []):
+                runs if cls is SortJoinTable else mesh_cases):
             table = cls(keys, vals, "cuda")
             err, times, hits = check_single(table, q,
                                             reps if shape else 0)
@@ -1629,8 +1666,11 @@ def main() -> int:
             report[union_join_kernel.name] = kernel_report(
                 errs, {"-hist dispatch": hist_t, "variant span": span_t},
                 "-hist dispatch")
-            report.update(check_single_kernels(adb, rdb, rng, args.reps,
-                                               edges))
+            q19 = dispatch_queries(w["asm_first"], w["k"], rng, 1 << 19)
+            report.update(check_single_kernels(
+                adb, rdb, rng, args.reps, edges,
+                [("mesh dispatch", "2^19 sorted windows", q19),
+                 ("mesh variant span", "the heavy 2^23-window span", qv)]))
 
         with phase("4 oracle"):
             check_small_worlds(tmp, args.seed, args.small_bases, args.repeat,
@@ -1666,6 +1706,14 @@ def main() -> int:
             by_path[sorted_join_kernel.name][
                 "-completeness, sequence DB counted"] = _run_count_full(
                     w, os.path.join(tmp, "full", "count"), args.seed)
+
+        with phase("10 mesh full"):
+            by_path[sorted_join_kernel.name].update(_run_mesh_full(
+                w, plan, os.path.join(tmp, "full", "mesh")))
+
+        with phase("11 two processes"):
+            _run_two_process(w, os.path.join(tmp, "two"), args.seed,
+                             args.small_bases)
 
     print(json.dumps({"kernels": [{
         "name": kern.name, "route": "cuda", "source": kern.source,
@@ -1709,6 +1757,7 @@ def _run_full(w: dict, cwd: str) -> int:
     assert hist.count(b"\n") >= 1
     if on_card:
         assert launches > 0, "the full -hist run never launched the kernel"
+    w["hist_out"], w["hist_err"] = hist, err    # phases 10 and 11
     t = [log.stamps[m] for m in marks]
     say(f"  split: start->DB load {t[0]:.1f} s, DB load {t[1] - t[0]:.1f} s, "
         f"union table build+upload {t[2] - t[1]:.1f} s, hist loop "
@@ -1864,6 +1913,8 @@ def _run_dump_full(w: dict, cwd: str) -> int:
     n_rows = rows.count(b"\n")
     # every valid assembly window has asmK >= 1, so each gives a row
     assert n_rows == cum_kasm, (n_rows, cum_kasm)
+    w["dump_digest"] = hashlib.sha256(rows).hexdigest()   # phase 10
+    w["dump_lines"] = [ln for ln in err.splitlines() if ln.count("\t") == 3]
     assert counters == {c: 0 for c in COUNTERS}, counters
     if on_card:
         assert launches > 0, "the full -dump run never launched the kernel"
@@ -2002,6 +2053,7 @@ def _run_variants_full(w: dict, plan: dict, cwd: str,
     assert outs["filter"] == plan["filter"], outs["filter"][-500:]
     assert outs["better"] == plan["polish"], outs["better"][-500:]
     assert outs["polish_light"] == outs["polish_host"] == outs["polish"]
+    plan["light_out"] = outs["polish_light"]    # phase 10
     say(f"  light.vcf variant loop: fused scorer {loops['polish_light']:.3f}"
         f" s, host scorer {loops['polish_host']:.3f} s")
     say(f"  -polish/-better: exactly the {plan['n_fixes']} true corrections; "
@@ -2236,6 +2288,288 @@ def _run_count_full(w: dict, cwd: str, seed: int,
     say(f"  statistics and histogram ({v.size} values) equal numpy's")
     return launches
 
+
+
+# ------------------------------------------------------ multi-device
+
+def _mesh_blocks(read_db, data: int, block: int = 1 << 22) -> int:
+    """The -completeness mesh steps over ``read_db``: per slice,
+    ceil(rows / (D * block)) at the mesh path's block size (the largest
+    slice's rows a d-row, rounded up to a power of two, at least 4096)."""
+    sizes = np.diff(np.asarray(read_db.slice_offsets))
+    per_dev = -(-int(sizes.max()) // data) if sizes.size else 0
+    if per_dev:
+        block = min(block, max(4096, 1 << (per_dev - 1).bit_length()))
+    return sum(-(-int(n) // (data * block)) for n in sizes)
+
+
+def _run_cli_rc(argv, cwd: str) -> tuple[int, str]:
+    """The port's CLI in this process -> (exit code, stderr)."""
+    from merfin_tpu_torch.cli import main
+
+    os.makedirs(cwd, exist_ok=True)
+    err = io.StringIO()
+    prev, _STDERR.f = _STDERR.f, err
+    try:
+        with contextlib.chdir(cwd), contextlib.redirect_stderr(_STDERR):
+            rc = main(argv)
+    finally:
+        _STDERR.f = prev
+    return rc, err.getvalue()
+
+
+def _run_mesh_full(w: dict, plan: dict, cwd: str) -> dict:
+    """Phase 10: the mesh paths on the full world.
+
+    Through the CLI on a 1x1 mesh (one sorted-join table a DB, no union
+    merge): -hist, -completeness, -dump (phase 7's cut) and -polish on
+    light.vcf, each byte-identical to its single-device phase (stderr
+    lines too, where the single-device run prints them).  Through the API
+    a 2x4 mesh over one card repeated (``make_mesh(devices=[cuda:0] * 8,
+    data=2)``) runs -hist, equal to phase 5's histogram.  ``-mesh 2x4``
+    on the CLI exits 1 (one card).  Prints walls and splits; returns
+    each path's sorted_join launches."""
+    import torch
+
+    from merfin_tpu_torch.io.fasta import SeqFile
+    from merfin_tpu_torch.io.mkdb import KmerDB
+    from merfin_tpu_torch.modes.hist import run_hist
+    from merfin_tpu_torch.ops.sorted_join import sorted_join_kernel
+    from merfin_tpu_torch.parallel.engine import ShardedKstarEngine
+    from merfin_tpu_torch.parallel.sharded import ShardedLookup, make_mesh
+
+    on_card = _on_card()
+    where = smi_line() if on_card else "CPU run"
+    mesh = ["-mesh", "1x1"]
+    launches = {}
+
+    def timed_run(tag, argv, marks, out, output=None):
+        log = StampedLog(marks)
+        sorted_join_kernel.launches = 0
+        got, err, counters = run_port_inprocess(
+            argv + mesh, os.path.join(cwd, tag), log, out=out, output=output)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - log.t0
+        launches[tag] = n = sorted_join_kernel.launches
+        if on_card:
+            assert n > 0, f"{tag} never launched sorted_join"
+        assert "-- Sharding tables over a 1x1 device mesh." in err
+        return got, err, counters, wall, [log.stamps[m] for m in marks], n
+
+    marks = ("-- Loading kmers", "-- Generate histogram", "K-mers not found")
+    hist, err, counters, wall, t, n = timed_run(
+        "-hist -mesh 1x1", w["argv"], marks, "out.hist")
+    assert hist == w["hist_out"], "mesh -hist != phase 5's histogram"
+    assert summary_of(err) == summary_of(w["hist_err"])
+    assert seq_lines_of(err) == seq_lines_of(w["hist_err"])
+    assert counters == {c: 0 for c in COUNTERS}, counters
+    say(f"  -hist -mesh 1x1: phase 5's histogram and lines; wall {wall:.1f} s "
+        f"({w['bases'] / wall:.0f} bases/s): DB load + two sorted-join "
+        f"tables (no union merge) {t[1] - t[0]:.1f} s, hist loop "
+        f"{t[2] - t[1]:.1f} s; sorted_join launches {n} ({where})")
+
+    argv = mode_argv(w["argv"], "completeness")
+    marks = ("-- Sharding tables", "thread  0")
+    _, err, _, wall, t, n = timed_run("-completeness -mesh 1x1", argv, marks,
+                                      "unused")
+    assert completeness_lines(err) == w["completeness_lines"]
+    blocks = _mesh_blocks(KmerDB(argv[2]), 1)
+    if on_card:
+        assert n == blocks, (n, blocks)
+    say(f"  -completeness -mesh 1x1: phase 6's 67 lines; wall {wall:.1f} s: "
+        f"asm shard + stream loop {t[1] - t[0]:.1f} s; {blocks} slice "
+        f"blocks, sorted_join launches {n} ({where})")
+
+    argv = mode_argv(w["argv"], "dump")
+    argv[argv.index("-sequence") + 1] = w["dump_fasta"]
+    marks = ("-- Loading kmers", "-- Dump per-base", "Processing sequence")
+    rows, err, counters, wall, t, n = timed_run("-dump -mesh 1x1", argv,
+                                                marks, "out.dump")
+    assert hashlib.sha256(rows).hexdigest() == w["dump_digest"]
+    assert [ln for ln in err.splitlines() if ln.count("\t") == 3] == \
+        w["dump_lines"]
+    assert counters == {c: 0 for c in COUNTERS}, counters
+    say(f"  -dump -mesh 1x1: phase 7's {rows.count(b'\n')} rows byte for "
+        f"byte; wall {wall:.1f} s ({w['dump_bases'] / wall:.0f} bases/s): "
+        f"tables {t[2] - t[0]:.1f} s, dump loop + rows {wall - t[2]:.1f} s; "
+        f"sorted_join launches {n} ({where})")
+
+    argv = mode_argv(w["argv"], "polish") + ["-vcf", plan["light_vcf"]]
+    marks = ("-- Loading kmers", "Processing sequence", "Bye!")
+    out, err, _, wall, t, n = timed_run("-polish -mesh 1x1", argv, marks,
+                                        "out", variant_vcf(argv))
+    assert out == plan["light_out"], "mesh -polish != phase 8's"
+    assert "-- Using fused device scoring (-devscore)." in err
+    say(f"  -polish -mesh 1x1 (light.vcf, fused ShardedScorer): phase 8's "
+        f"{vcf_records(out)} records byte for byte; wall {wall:.1f} s: tables "
+        f"{t[1] - t[0]:.1f} s, variant loop {t[2] - t[1]:.1f} s; "
+        f"sorted_join launches {n} ({where})")
+
+    # the API on a 2x4 mesh of one card repeated
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    read_db, asm_db = KmerDB(w["argv"][4]), KmerDB(w["argv"][6])
+    t0 = time.perf_counter()
+    m = make_mesh(devices=[dev] * 8, data=2)
+    rl = ShardedLookup.build(read_db, m)
+    al = ShardedLookup.build(asm_db, m)
+    engine = ShardedKstarEngine(m, rl, al, w["k"], w["peak"],
+                                max_value=w["read_max"], exact_max=True,
+                                asm_max_value=int(np.asarray(asm_db.vals).max()))
+    if on_card:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sorted_join_kernel.launches = 0
+    out = os.path.join(_mkdir(os.path.join(cwd, "api")), "out.hist")
+    log = io.StringIO()
+    run_hist(engine, SeqFile(w["argv"][2]), out, log=log)
+    if on_card:
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches["-hist, API 2x4 mesh on one card"] = n = \
+        sorted_join_kernel.launches
+    with open(out, "rb") as f:
+        assert f.read() == w["hist_out"], "2x4 mesh -hist != phase 5's"
+    assert seq_lines_of(log.getvalue()) == seq_lines_of(w["hist_err"])
+    assert {c: getattr(engine, c) for c in COUNTERS} == \
+        {c: 0 for c in COUNTERS}
+    if on_card:
+        assert n > 0
+    say(f"  -hist on make_mesh(devices=[{dev}] * 8, data=2) "
+        f"({m.shape}; one table per shard column): phase 5's histogram; "
+        f"tables {t1 - t0:.1f} s, run_hist {t2 - t1:.1f} s; sorted_join "
+        f"launches {n} ({where})")
+    del engine, rl, al
+
+    rc, err = _run_cli_rc(w["argv"] + ["-mesh", "2x4", "-output", "x.hist"],
+                          os.path.join(cwd, "too_big"))
+    n_dev = torch.cuda.device_count() if on_card else 1
+    assert rc == 1 and err.splitlines()[-1] == (
+        f"ERROR: -mesh 2x4 needs 8 devices; {n_dev} available."), err[-500:]
+    say(f"  -mesh 2x4 on the CLI: exit 1, '{err.splitlines()[-1]}'")
+    return launches
+
+
+# One rank of phase 11: runs each (cwd, argv) job through the port's CLI.
+# A rank that fails exits at once, so its peer fails at its next
+# collective instead of waiting out the timeout.
+_RANK_SCRIPT = """
+import contextlib, json, os, sys, time, traceback
+sys.path.insert(0, {repo!r})
+from merfin_tpu_torch.cli import main
+try:
+    for cwd, argv in json.loads(sys.argv[1]):
+        t = time.perf_counter()
+        os.makedirs(cwd, exist_ok=True)
+        with contextlib.chdir(cwd):
+            assert main(argv) == 0, argv
+        print("JOB", argv[0], round(time.perf_counter() - t, 2), flush=True)
+except BaseException:
+    traceback.print_exc()
+    sys.stderr.flush()
+    os._exit(1)
+print("ALLDONE")
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _run_two_process(w: dict, cwd: str, seed: int, bases: int,
+                     timeout: int = 420) -> None:
+    """Phase 11: striped two-process launches (MERFIN_NUM_PROCESSES=2,
+    gloo merges; on a card both ranks on cuda:0): -hist of the full world,
+    and -polish, -dump and `count` of a ``bases`` parity world, each
+    byte-identical to its one-process output, with no part, checkpoint
+    or spill file left behind."""
+    import glob
+
+    on_card = _on_card()
+    small = materialize(parity_world(seed + 11, bases, k=21),
+                        _mkdir(os.path.join(cwd, "world")))
+    fasta = small[2]
+    polish = vcf_argv(small, "polish") + ["-threads", "2"]
+    dump = mode_argv(small, "dump")
+    t0 = time.perf_counter()
+    ref = {"polish": run_port_inprocess(polish, os.path.join(cwd, "one"),
+                                        out="out",
+                                        output="out.polish.vcf")[0],
+           "dump": run_port_inprocess(dump, os.path.join(cwd, "one"),
+                                      out="out.dump")[0]}
+    run_db_tool(["count", "k=21", fasta, "output=one.mkdb"], cwd)
+    t1 = time.perf_counter()
+    two = os.path.join(cwd, "two")
+    jobs = [(os.path.join(two, "hist"), w["argv"] + ["-output", "out.hist"]),
+            (two, polish + ["-output", "out"]),
+            (two, dump + ["-output", "out.dump"]),
+            (two, ["count", "k=21", fasta, "output=two.mkdb"])]
+    if on_card:
+        import torch
+
+        torch.cuda.empty_cache()    # the card's memory for both ranks
+        free, total = torch.cuda.mem_get_info()
+        say(f"  card memory before the ranks start: {free / 2**30:.1f} of "
+            f"{total / 2**30:.1f} GiB free")
+    port = _free_port()
+    env = dict(os.environ, MERFIN_PLATFORM="cuda" if on_card else "cpu",
+               MERFIN_NUM_PROCESSES="2", MERFIN_DIST_TIMEOUT="120",
+               MERFIN_COORDINATOR=f"127.0.0.1:{port}")
+    src = _RANK_SCRIPT.format(repo=REPO)
+    # each rank's output goes to files: a rank blocked on a full pipe
+    # that nobody reads would stall the other at its next collective
+    logs = [[open(os.path.join(cwd, f"rank{i}.{x}"), "w+")
+             for x in ("out", "err")] for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", src, json.dumps(jobs)],
+        env=dict(env, MERFIN_PROCESS_ID=str(i)), stdout=logs[i][0],
+        stderr=logs[i][1], text=True) for i in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    outs = []
+    for files in logs:
+        for f in files:
+            f.seek(0)
+        outs.append(tuple(f.read() for f in files))
+        for f in files:
+            f.close()
+    wall = time.perf_counter() - t1
+    bad = [(i, p.returncode, err[-2500:])
+           for i, (p, (out, err)) in enumerate(zip(procs, outs))
+           if p.returncode != 0 or "ALLDONE" not in out]
+    assert not bad, bad
+    for i, (_, err) in enumerate(outs):
+        assert f"-- Joined distributed job: process {i} of 2." in err
+    with open(os.path.join(two, "hist", "out.hist"), "rb") as f:
+        assert f.read() == w["hist_out"], "2-process -hist != phase 5's"
+    with open(os.path.join(two, "out.polish.vcf"), "rb") as f:
+        assert f.read() == ref["polish"], "2-process -polish != 1-process"
+    with open(os.path.join(two, "out.dump"), "rb") as f:
+        assert f.read() == ref["dump"], "2-process -dump != 1-process"
+    _same_mkdb(os.path.join(cwd, "one.mkdb"), os.path.join(two, "two.mkdb"))
+    left = [g for pat in ("*.part*", "*.ckpt.json*", "*.spill*")
+            for g in glob.glob(os.path.join(two, "**", pat), recursive=True)]
+    assert not left, left
+    jobs0 = [ln.split()[1:] for ln in outs[0][0].splitlines()
+             if ln.startswith("JOB")]
+    say(f"  two processes ({'both on cuda:0' if on_card else 'CPU'}, gloo "
+        f"merges): -hist of the full world = phase 5's histogram; -polish "
+        f"({vcf_records(ref['polish'])} records), -dump "
+        f"({ref['dump'].count(b'\n')} rows) and count of a {bases} bp world "
+        f"= one process; no part/spill files left; wall {wall:.1f} s "
+        f"(rank 0's jobs: {jobs0}; one-process references "
+        f"{t1 - t0:.1f} s)")
 
 if __name__ == "__main__":
     raise SystemExit(main())

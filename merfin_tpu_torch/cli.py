@@ -21,9 +21,13 @@ divide-round) live under the same binary:
 
     merfin-tpu-torch count k=21 reads.fastq.gz output read.mkdb
 
-What is not ported yet (-mesh, a multi-host launch) exits with code 1
-and a one-line error.  The device comes from MERFIN_PLATFORM: ``cuda``
-(default) or ``cpu``.
+``-mesh DxT`` shards both tables over a D x T device mesh for every
+report type (``parallel/``); a multi-process launch (MERFIN_NUM_PROCESSES,
+MERFIN_PROCESS_ID, MERFIN_COORDINATOR on every process) joins one
+torch.distributed job, stripes sequences, DB slices or input blocks over
+the processes, and rank 0 writes the merged outputs.  The device comes
+from MERFIN_PLATFORM: ``cuda`` (default) or ``cpu``; on the CPU a mesh
+has MERFIN_CPU_DEVICES logical devices (default 1).
 """
 
 from __future__ import annotations
@@ -44,12 +48,6 @@ def main(argv: list[str] | None = None) -> int:
     if argv and argv[0] in _DB_SUBCOMMANDS:
         return db_tool_main(argv)
     return merfin_main(argv)
-
-
-def _not_ported(what: str) -> int:
-    print(f"ERROR: {what} is not yet ported to merfin-tpu-torch "
-          f"(use merfin-tpu).", file=sys.stderr)
-    return 1
 
 
 def merfin_main(argv: list[str]) -> int:
@@ -147,8 +145,6 @@ def _usage() -> None:
         "  sorted-join kernels; -sortjoin and -nosortjoin are accepted), -resume\n"
         "  restarts -hist, -dump and the variant modes at a sequence boundary.\n"
         "  Without -seqmers, <seq.fasta>.meryl is counted from -sequence first.\n"
-        "  -mesh and multi-host launches are not yet ported: use merfin-tpu for\n"
-        "  them.\n"
         "\n"
         "  -filter / -better / -strict / -loose / -polish\n"
         "   Score the variant calls of <input.vcf> by the k-mers they create or\n"
@@ -197,7 +193,13 @@ def _usage() -> None:
         "  output=db.  Other db tools: print statistics histogram intersect\n"
         "  union-sum subtract divide-round export.\n"
         "\n"
-        "  Device: MERFIN_PLATFORM=cuda (default) or cpu.\n"
+        "  -mesh DxT        shard the lookup tables over a DxT device mesh (all report types)\n"
+        "  Multi-host: set MERFIN_NUM_PROCESSES, MERFIN_PROCESS_ID and MERFIN_COORDINATOR\n"
+        "  (host:port) on every process; sequences/DB slices stripe across processes and\n"
+        "  rank 0 writes the merged outputs.\n"
+        "\n"
+        "  Device: MERFIN_PLATFORM=cuda (default) or cpu (MERFIN_CPU_DEVICES logical\n"
+        "  devices for -mesh, default 1).\n"
         "\n\n"
     )
 
@@ -208,38 +210,33 @@ def _db_max(db) -> int:
     return int(np.asarray(db.vals).max()) if db.distinct else 1
 
 
-_MULTI_HOST = "a multi-host launch (MERFIN_NUM_PROCESSES > 1)"
+def _device_hbm_gb(device) -> float | None:
+    """Memory of one card in GB; None on the CPU."""
+    import torch
 
-
-def _multi_host() -> bool:
-    return int(os.environ.get("MERFIN_NUM_PROCESSES", "1") or "1") > 1
-
-
-def _unported(cfg: MerfinConfig) -> str | None:
-    if cfg.mesh:
-        return "-mesh"
-    if _multi_host():
-        return _MULTI_HOST
-    return None
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1] / 1024**3
 
 
 def run(cfg: MerfinConfig) -> int:
-    """Load DBs and run the report — the JAX CLI's run() for its ported
-    part."""
-    what = _unported(cfg)
-    if what is not None:
-        return _not_ported(what)
-
-    import torch
-
+    """Load DBs and run the report — the JAX CLI's run()."""
+    from merfin_tpu_torch.device import devices, get_device
     from merfin_tpu_torch.io.fasta import SeqFile
     from merfin_tpu_torch.io.mkdb import KmerDB, is_mkdb
     from merfin_tpu_torch.io.prob import load_prob_table
+    from merfin_tpu_torch.parallel import multihost as mh
     from merfin_tpu_torch.table.lookup import build_lookup
-    from merfin_tpu_torch.device import get_device
 
     log = sys.stderr
     device = get_device()
+
+    # Multi-process launch (MERFIN_NUM_PROCESSES / MERFIN_PROCESS_ID /
+    # MERFIN_COORDINATOR): each process takes a sequence (or DB-slice)
+    # stripe, accumulators merge over gloo, rank 0 writes the outputs;
+    # -debug writes per-rank gz files and -resume keeps per-rank
+    # checkpoints.
+    multi = mh.maybe_init_from_env(log=log)
 
     prob = load_prob_table(cfg.prob_table, log=log) if cfg.prob_table else None
 
@@ -257,6 +254,7 @@ def run(cfg: MerfinConfig) -> int:
                   file=log)
             from merfin_tpu_torch.count.counter import count_files
 
+            # ranks stripe the input blocks and rank 0 merges the DB
             count_files([cfg.seq_name], k, cfg.seq_db_name, log=log)
 
     read_db = KmerDB(cfg.read_db_name)
@@ -279,13 +277,57 @@ def run(cfg: MerfinConfig) -> int:
         print("\nNot enough memory to load databases.  Increase -memory.\n", file=log)
         return 1
 
-    # device-memory fail-fast: the tables must fit the card they go to
-    # (as in the JAX CLI, not for -completeness, whose read DB streams)
-    if device.type == "cuda" and cfg.report_type != "completeness":
-        hbm_gb = torch.cuda.mem_get_info(device)[1] / 1024**3
-        if req > 0.92 * hbm_gb:    # headroom for batches
-            print(f"\nLookup tables need {req:.1f} GB per device but "
+    def n_devices() -> int:
+        return len(mh.global_devices()) if multi else len(devices())
+
+    # Mesh: every report type rides it (the reference parallelizes every
+    # mode: sweatShop merfin.C:366-413, OpenMP merfin-completeness.C:65).
+    mesh = None
+    t_shards = 1
+    if cfg.mesh:
+        from merfin_tpu_torch.parallel.sharded import make_mesh
+
+        try:
+            d, t = (int(x) for x in cfg.mesh.lower().split("x"))
+        except ValueError:
+            print(f"ERROR: -mesh '{cfg.mesh}' is not DxT (e.g. 2x4).", file=log)
+            return 1
+        n = n_devices()
+        if n < d * t:
+            print(f"ERROR: -mesh {d}x{t} needs {d * t} devices; "
+                  f"{n} available.", file=log)
+            return 1
+        if multi and d * t != n:
+            # a partial mesh under a multi-process launch would leave some
+            # processes driving only other processes' devices
+            hint = f"{n // t}x{t}" if n % t == 0 else f"1x{n}"
+            print(f"ERROR: -mesh {d}x{t} must use all {n} devices "
+                  f"of the multi-host slice (e.g. -mesh {hint}).", file=log)
+            return 1
+        mesh = mh.make_global_mesh(data=d) if multi else \
+            make_mesh(d * t, data=d)
+        t_shards = t
+        print(f"-- Sharding tables over a {d}x{t} device mesh.", file=log)
+
+    # device-memory fail-fast: tables must fit the card they go to, whole
+    # on one card or 1/T per card when sharded over "t" (not for
+    # -completeness, whose read DB streams)
+    hbm_gb = _device_hbm_gb(device)
+    if hbm_gb is not None and cfg.report_type != "completeness":
+        per_dev = req / t_shards
+        if per_dev > 0.92 * hbm_gb:    # headroom for batches
+            print(f"\nLookup tables need {per_dev:.1f} GB per device but "
                   f"device HBM is {hbm_gb:.1f} GB.", file=log)
+            if mesh is None:
+                n = n_devices()
+                if n > 1:
+                    t_need = max(2, int(per_dev / (0.92 * hbm_gb)) + 1)
+                    print(f"Shard the tables over the device mesh: "
+                          f"-mesh 1x{min(t_need, n)} (up to {n} devices "
+                          f"available).\n", file=log)
+            else:
+                print("Increase the -mesh table axis (DxT with larger T).\n",
+                      file=log)
             return 1
 
     if cfg.report_type == "completeness":
@@ -293,21 +335,39 @@ def run(cfg: MerfinConfig) -> int:
 
         print("-- Compute completeness.", file=log)
         run_completeness(read_db, asm_db, cfg.peak, prob_table=prob, log=log,
-                         device=device)
+                         device=device, mesh=mesh)
         print("Bye!", file=log)
         return 0
 
-    print(f"-- Loading kmers from '{cfg.read_db_name}' into lookup table.", file=log)
-    read_lookup = build_lookup(read_db, min_v=cfg.min_v, max_v=cfg.max_v,
-                               host=True)
-    print(f"-- Loading kmers from '{cfg.seq_db_name}' into lookup table.", file=log)
-    asm_lookup = build_lookup(asm_db, host=True)
+    if mesh is not None:
+        from merfin_tpu_torch.parallel.sharded import ShardedLookup
+
+        print(f"-- Loading kmers from '{cfg.read_db_name}' into sharded table.",
+              file=log)
+        read_lookup = ShardedLookup.build(read_db, mesh, min_v=cfg.min_v,
+                                          max_v=cfg.max_v)
+        print(f"-- Loading kmers from '{cfg.seq_db_name}' into sharded table.",
+              file=log)
+        asm_lookup = ShardedLookup.build(asm_db, mesh)
+    else:
+        print(f"-- Loading kmers from '{cfg.read_db_name}' into lookup table.", file=log)
+        read_lookup = build_lookup(read_db, min_v=cfg.min_v, max_v=cfg.max_v,
+                                   host=True)
+        print(f"-- Loading kmers from '{cfg.seq_db_name}' into lookup table.", file=log)
+        asm_lookup = build_lookup(asm_db, host=True)
 
     seq_file = SeqFile(cfg.seq_name)
 
-    from merfin_tpu_torch.modes.engine import KstarEngine
-
     def make_engine():
+        if mesh is not None:
+            from merfin_tpu_torch.parallel.engine import ShardedKstarEngine
+
+            return ShardedKstarEngine(
+                mesh, read_lookup, asm_lookup, k, cfg.peak, prob_table=prob,
+                max_value=_db_max(read_db), exact_max=True,
+                asm_max_value=_db_max(asm_db))
+        from merfin_tpu_torch.modes.engine import KstarEngine
+
         return KstarEngine(read_lookup, asm_lookup, k, cfg.peak,
                            prob_table=prob, max_value=_db_max(read_db),
                            exact_max=True, asm_max_value=_db_max(asm_db),
@@ -318,7 +378,7 @@ def run(cfg: MerfinConfig) -> int:
 
         print(f"-- Generate histogram of the k* metric to '{cfg.out_name}'.", file=log)
         engine = make_engine()
-        if cfg.sortjoin is not False:
+        if mesh is None and cfg.sortjoin is not False:
             print("-- Using sorted-join lookup kernel for -hist.", file=log)
         run_hist(engine, seq_file, cfg.out_name, log=log, resume=cfg.resume)
     elif cfg.report_type == "dump":
@@ -328,21 +388,25 @@ def run(cfg: MerfinConfig) -> int:
         run_dump(make_engine(), seq_file, cfg.out_name,
                  skip_missing=cfg.skip_missing, log=log, resume=cfg.resume)
     elif _run_variant_mode(cfg, k, read_db, read_lookup, asm_lookup, prob,
-                           seq_file, device, log) != 0:
+                           seq_file, device, log, mesh=mesh) != 0:
         return 1
     print("Bye!", file=log)
     return 0
 
 
 def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
-                      asm_lookup, prob, seq_file, device, log) -> int:
-    """The variant modes, as the JAX CLI runs them on one device: the VCF
-    and its clusters, the devscore rule, then the fused device scorer or
-    the host scorer, both on one union table."""
+                      asm_lookup, prob, seq_file, device, log,
+                      mesh=None) -> int:
+    """The variant modes, as the JAX CLI runs them: the VCF and its
+    clusters, the devscore rule, then the fused device scorer or the host
+    scorer, on one union table or, with ``mesh``, on the sharded tables
+    (on a mesh over several processes every rank evaluates every
+    cluster)."""
     from merfin_tpu_torch.io.vcf import VcfFile
     from merfin_tpu_torch.modes.variants import run_variants
     from merfin_tpu_torch.ops.union_join import UnionTable, host_lookups
-    from merfin_tpu_torch.variants.device_score import DeviceScorer
+    from merfin_tpu_torch.variants.device_score import (DeviceScorer,
+                                                        ShardedScorer)
 
     print(f"-- Opening vcf file '{cfg.vcf_name}'.", file=log)
     vcf = VcfFile(cfg.vcf_name, log=log)
@@ -363,24 +427,35 @@ def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
         print("ERROR: -debug needs per-window K* stats; it cannot run "
               "with -devscore.", file=log)
         return 1
-    table = UnionTable.from_dbs(read_lookup.keys, read_lookup.vals,
-                                asm_lookup.keys, asm_lookup.vals, device)
+    if mesh is not None:
+        lookup_read, lookup_asm = read_lookup.lookup_np, asm_lookup.lookup_np
+    else:
+        table = UnionTable.from_dbs(read_lookup.keys, read_lookup.vals,
+                                    asm_lookup.keys, asm_lookup.vals, device)
+        lookup_read, lookup_asm = host_lookups(table)
     scorer = None
     if use_dev:
         print("-- Using fused device scoring (-devscore).", file=log)
-        scorer = DeviceScorer(table, k, cfg.peak, prob,
-                              max_value=_db_max(read_db), exact_max=True)
+        if mesh is not None:
+            scorer = ShardedScorer(mesh, read_lookup, asm_lookup, k,
+                                   cfg.peak, prob, max_value=_db_max(read_db),
+                                   exact_max=True)
+        else:
+            scorer = DeviceScorer(table, k, cfg.peak, prob,
+                                  max_value=_db_max(read_db), exact_max=True)
         if (cfg.report_type == "polish" and cfg.devscore is None
                 and not scorer.value_map.int_scorer_ok()):
             print("-- Device scoring lacks the integer fast path "
                   "here; using the host scorer for -polish.", file=log)
+            scorer.close()
             scorer = None
-    lookup_read, lookup_asm = host_lookups(table)
     try:
         run_variants(cfg.report_type, seq_file, vcf, k, lookup_read,
                      lookup_asm, cfg.peak, prob, cfg.out_name, comb=cfg.comb,
                      debug=cfg.debug, log=log, resume=cfg.resume,
-                     threads=cfg.threads, scorer=scorer)
+                     threads=cfg.threads,
+                     spans=mesh is not None and mesh.spans_hosts,
+                     scorer=scorer)
     finally:
         if scorer is not None:
             scorer.close()
@@ -392,11 +467,14 @@ def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
 def db_tool_main(argv: list[str]) -> int:
     """The JAX CLI's database tools (merfin_tpu/cli.py:db_tool_main): the
     same arguments, stdout and output DBs; ``count`` on the device."""
-    if _multi_host():
-        return _not_ported(_MULTI_HOST)
     from merfin_tpu_torch.count import algebra
     from merfin_tpu_torch.io import meryl_text
     from merfin_tpu_torch.io.mkdb import KmerDB
+
+    from merfin_tpu_torch.parallel.multihost import maybe_init_from_env
+
+    # `count` stripes input blocks across a multi-process launch
+    maybe_init_from_env(log=sys.stderr)
 
     cmd = argv[0]
     args = argv[1:]

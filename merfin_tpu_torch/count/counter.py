@@ -21,6 +21,8 @@ byte-identical to the JAX package's for the same input.
 
 from __future__ import annotations
 
+import os
+import shutil
 import sys
 from typing import Iterable
 
@@ -454,7 +456,7 @@ def count_files(
     memory_gb: float | None = None,
     spill_dir: str | None = None,
 ) -> KmerDB:
-    """Count k-mers of FASTA/FASTQ files into a new MKDB (one process).
+    """Count k-mers of FASTA/FASTQ files into a new MKDB.
 
     Streaming host data plane: each input file flows through fixed byte
     windows (SeqFile.iter_packed), so a 100+ GB FASTQ.gz counts in
@@ -464,12 +466,19 @@ def count_files(
     accumulator is the host's, which spills sorted runs to disk when the
     distinct-kmer set exceeds the budget, and the database is produced
     by a 64-slice out-of-core merge (meryl's out-of-core counting role,
-    SURVEY.md §2.2).  ``log``: where the spill merge is announced
-    (default: the current sys.stderr).
+    SURVEY.md §2.2).  Under a multi-process launch each rank counts its
+    stripe of the input blocks (exact: the window overlap makes every
+    block independently countable) and spills it to a per-rank directory
+    on the shared filesystem; rank 0 merges every rank's runs into the
+    database.  ``log``: where the spill merge is announced (default: the
+    current sys.stderr).
     """
+    from merfin_tpu_torch.parallel import multihost as mh
     from merfin_tpu_torch.utils.prefetch import prefetch_iter
 
     log = sys.stderr if log is None else log
+    multi = mh.is_active()
+    pid, pcount = mh.process_info() if multi else (0, 1)
 
     def all_blocks():
         for p in paths:
@@ -479,16 +488,40 @@ def count_files(
 
     # the prefetch thread parses and packs the next window while the
     # device counts this one
-    seqs = prefetch_iter(all_blocks())
+    blocks = mh.host_sequences(all_blocks()) if multi else all_blocks()
+    seqs = prefetch_iter(blocks)
     budget = int(memory_gb * 1024**3) if memory_gb is not None else None
-    if budget is None and use_device:
+    if not multi and budget is None and use_device:
         dacc = _DeviceCountAcc(k, chunk)
         for buf in _packed_chunks(seqs, k, chunk):
             dacc.add_codes(buf)
         return _create(out_db, k, *dacc.drain())
 
+    spill_base = None
+    if multi:
+        # per-rank spill dirs (an explicit spill_dir is the shared base:
+        # ranks would overwrite each other's run files in one dir)
+        spill_base = spill_dir or f"{out_db}.spill"
+        spill_dir = os.path.join(spill_base, f"rank{pid}")
     acc = _Accumulator(k=k, budget_bytes=budget, spill_dir=spill_dir)
     _count_into(acc, seqs, k, chunk=chunk, use_device=use_device)
+    if multi:
+        from merfin_tpu_torch.count.spill import SpillStore, merge_to_mkdb
+
+        if acc.mem_parts() or acc.store is None:
+            acc._spill()
+        total = int(mh.merge_scalar_across_hosts(acc.total))
+        mh.barrier("count-spilled")
+        if pid == 0:
+            dirs = [os.path.join(spill_base, f"rank{r}")
+                    for r in range(pcount)]
+            store = SpillStore.gather(dirs, k)
+            print(f"count: merging {len(store.runs)} spilled runs "
+                  f"from {pcount} hosts", file=log)
+            merge_to_mkdb(out_db, k, store, [], total)
+            shutil.rmtree(spill_base, ignore_errors=True)
+        mh.barrier("count-merged")
+        return KmerDB(out_db)
     if acc.store is not None:
         from merfin_tpu_torch.count.spill import merge_to_mkdb
 

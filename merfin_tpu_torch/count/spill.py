@@ -1,6 +1,5 @@
 """Out-of-core support for k-mer counting and import (a copy of
-``merfin_tpu/count/spill.py``; ``SpillStore.gather``, which serves only
-the multi-host merge, is left out with that merge).
+``merfin_tpu/count/spill.py``).
 
 meryl's role in the reference includes out-of-core counting: a human 30x
 read set has ~2-3G distinct k-mers, more than host RAM alongside the rest
@@ -71,6 +70,27 @@ class SpillStore:
         with open(prefix + ".meta.json", "w") as f:
             json.dump([int(x) for x in offs], f)
         self.runs.append((prefix, offs))
+
+    @classmethod
+    def gather(cls, dirs: list[str], k: int) -> "SpillStore":
+        """A read-only store over every run found under ``dirs`` (in dir
+        order, run order) — the multi-host gather: each rank spilled its
+        stripe's runs to a shared filesystem, rank 0 merges them all."""
+        import json
+
+        store = cls.__new__(cls)
+        store.k = k
+        store._own = False
+        store.dir = dirs[0] if dirs else "."
+        store.runs = []
+        for d in dirs:
+            for name in sorted(os.listdir(d)):
+                if name.endswith(".meta.json"):
+                    prefix = os.path.join(d, name[: -len(".meta.json")])
+                    with open(os.path.join(d, name)) as f:
+                        offs = np.asarray(json.load(f), dtype=np.int64)
+                    store.runs.append((prefix, offs))
+        return store
 
     def run_slice(self, run: int, s: int) -> tuple[np.ndarray, np.ndarray]:
         prefix, offs = self.runs[run]

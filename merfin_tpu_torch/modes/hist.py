@@ -1,6 +1,7 @@
-"""-hist mode driver (port of ``merfin_tpu/modes/hist.py:run_hist``,
-single process): per-sequence QV lines, the k* histogram file and the
-QV/QV* summary, byte-identical to the JAX package.
+"""The -hist mode (port of ``merfin_tpu/modes/hist.py:run_hist``):
+per-sequence QV lines, the k* histogram file and the QV/QV* summary,
+byte-identical to the JAX package, on one device, a mesh
+(``parallel/engine.py``) or a multi-process launch.
 
 Output parity targets:
   * per-sequence stderr line "ident\\tmissing\\tcum_missing\\tkasm\\tQV"
@@ -23,6 +24,7 @@ from merfin_tpu_torch.score.kstar import histo_qv
 from merfin_tpu_torch.utils.checkpoint import Checkpoint
 from merfin_tpu_torch.utils.prefetch import prefetch_iter
 from merfin_tpu_torch.modes.engine import SEG_MAX, BinOverflow, KstarEngine
+from merfin_tpu_torch.parallel import multihost as mh
 
 
 def run_hist(engine: KstarEngine, seq_file: SeqFile, out_name: str,
@@ -43,7 +45,23 @@ def run_hist(engine: KstarEngine, seq_file: SeqFile, out_name: str,
         g_undr = np.pad(g_undr, (0, engine.nbins - g_undr.size))
         g_over = np.pad(g_over, (0, engine.nbins - g_over.size))
 
-    ckpt = Checkpoint(out_name, "hist", enabled=resume)
+    # Multi-process, two shapes:
+    #  * striped (one engine per process): every process takes its
+    #    sequence stripe, the accumulators merge at the end;
+    #  * a host-spanning mesh (engine.spans_hosts): every process drives
+    #    the SAME sequences and gets the same results, no merge.
+    # Rank 0 writes the outputs in both.
+    multi = mh.is_active()
+    spans = bool(getattr(engine, "spans_hosts", False))
+    pid = mh.process_info()[0] if multi else 0
+
+    # Resume: striped ranks checkpoint their own stripe's partial
+    # accumulators (a per-rank sidecar); spans ranks share rank 0's
+    # checkpoint, which only rank 0 writes.
+    striped = multi and not spans
+    ckpt = Checkpoint(f"{out_name}.rank{pid}" if striped else out_name,
+                      "hist", enabled=resume,
+                      writer=striped or (not multi) or pid == 0)
     skip = 0
     if resume and (st := ckpt.load()) is not None:
         skip = st["seqs_done"]
@@ -111,8 +129,12 @@ def run_hist(engine: KstarEngine, seq_file: SeqFile, out_name: str,
         while len(in_flight) > (0 if drain else 1):
             drain_one()
 
+    seqs = seq_file.iter_coded()
+    if striped:
+        seqs = mh.host_sequences(seqs)
+
     seq_idx = 0
-    for seq in prefetch_iter(seq_file.iter_coded()):
+    for seq in prefetch_iter(seqs):
         seq_idx += 1
         if seq_idx <= skip:
             continue
@@ -139,25 +161,40 @@ def run_hist(engine: KstarEngine, seq_file: SeqFile, out_name: str,
         save_ckpt(seq_idx)
     flush_group(drain=True)
 
-    # histogram file (reportHistogram, merfin-histogram.C:141-163)
-    with open_write_text(out_name) as f:
-        for ii in range(g_undr.size - 1, 0, -1):
-            if g_undr[ii] > 0:
-                f.write(f"{ii * -0.2:.1f}\t{g_undr[ii]}\n")
-        f.write(f"{0.0:.1f}\t{g_undr[0] + g_over[0]}\n")
-        for ii in range(1, g_over.size):
-            if g_over[ii] > 0:
-                f.write(f"{ii * 0.2:.1f}\t{g_over[ii]}\n")
+    if striped:
+        g_missing = int(mh.merge_scalar_across_hosts(g_missing))
+        g_kasm = int(mh.merge_scalar_across_hosts(g_kasm))
+        g_kover = mh.merge_scalar_across_hosts(g_kover)
+        # ranks may have grown their bins independently: pad to the
+        # global max before the elementwise sum
+        nb = int(mh.max_scalar_across_hosts(g_undr.size))
+        g_undr = mh.merge_array_across_hosts(
+            np.pad(g_undr, (0, nb - g_undr.size)))
+        g_over = mh.merge_array_across_hosts(
+            np.pad(g_over, (0, nb - g_over.size)))
 
-    print("", file=log)
-    print(f"K-mers not found in reads (missing) : {g_missing}", file=log)
-    print(f"K-mers overly represented in assembly: {g_kover:.2f}", file=log)
-    print(f"K-mers found in the assembly: {g_kasm}", file=log)
-    print(f"Missing QV: {histo_qv(g_missing, g_kasm, k):.2f}", file=log)
-    print(f"Merfin QV*: {histo_qv(g_missing + g_kover, g_kasm, k):.2f}", file=log)
-    print("*** Note this QV is valid only if -seqmer was generated with -sequence ***\n", file=log)
-    print("*** Missing QV only considers missing kmers as errors. Merfin QV* includes overrepresented kmers. ***\n", file=log)
-    print("*** When the lookup table is provided, missing QV includes weighted low frequency kmers, otherwise it is identical to Merqury QV. ***\n", file=log)
+    if pid == 0:
+        # histogram file (reportHistogram, merfin-histogram.C:141-163)
+        with open_write_text(out_name) as f:
+            for ii in range(g_undr.size - 1, 0, -1):
+                if g_undr[ii] > 0:
+                    f.write(f"{ii * -0.2:.1f}\t{g_undr[ii]}\n")
+            f.write(f"{0.0:.1f}\t{g_undr[0] + g_over[0]}\n")
+            for ii in range(1, g_over.size):
+                if g_over[ii] > 0:
+                    f.write(f"{ii * 0.2:.1f}\t{g_over[ii]}\n")
+
+        print("", file=log)
+        print(f"K-mers not found in reads (missing) : {g_missing}", file=log)
+        print(f"K-mers overly represented in assembly: {g_kover:.2f}", file=log)
+        print(f"K-mers found in the assembly: {g_kasm}", file=log)
+        print(f"Missing QV: {histo_qv(g_missing, g_kasm, k):.2f}", file=log)
+        print(f"Merfin QV*: {histo_qv(g_missing + g_kover, g_kasm, k):.2f}", file=log)
+        print("*** Note this QV is valid only if -seqmer was generated with -sequence ***\n", file=log)
+        print("*** Missing QV only considers missing kmers as errors. Merfin QV* includes overrepresented kmers. ***\n", file=log)
+        print("*** When the lookup table is provided, missing QV includes weighted low frequency kmers, otherwise it is identical to Merqury QV. ***\n", file=log)
+    if multi:
+        mh.barrier("hist-done")
 
     ckpt.done()
     return {

@@ -21,9 +21,11 @@ Two scoring paths:
 
 The host helpers (cluster preparation, the enumeration and selection
 tasks, the debug writer) are copies of the JAX package's
-(``merfin_tpu/modes/variants.py``).  This module imports no torch: the
-spawned enumeration workers import it to run their tasks.
-Not ported: the multi-host branches (striped part files, spans).
+(``merfin_tpu/modes/variants.py``).  Under a multi-process launch each
+rank writes a part file of its sequence stripe (merged by rank 0), or,
+on a host-spanning mesh, every rank evaluates every cluster and rank 0
+writes.  This module imports no torch: the spawned enumeration workers
+import it to run their tasks.
 """
 
 from __future__ import annotations
@@ -317,12 +319,19 @@ def run_variants(mode: str, seq_file: SeqFile, vcf: VcfFile, k: int,
                  prob_table: ProbTable | None, out_name: str, comb: int = 15,
                  debug: bool = False, log=sys.stderr,
                  query_budget: int = 1 << 23, resume: bool = False,
-                 threads: int = 1, scorer=None):
+                 threads: int = 1, spans: bool = False, scorer=None):
     """Variant-mode driver.  ``scorer`` (a DeviceScorer) takes the fused
     path; without it, ``lookup_read``/``lookup_asm`` (numpy u64 -> u64)
     feed the host scorer.  ``threads`` > 1 (0 = all cores) enumerates
     heavy clusters on a spawned process pool; output order never
-    depends on it.  Returns {"records": n}."""
+    depends on it.  ``spans``: the lookups ride a mesh over several
+    processes.  Returns {"records": n}."""
+    # the parent only: the spawned workers never import torch
+    from merfin_tpu_torch.parallel import multihost as mh
+    from merfin_tpu_torch.utils.partmerge import (PartWriter,
+                                                  can_resume_part,
+                                                  merge_parts)
+
     assert mode in MODES
     if debug and scorer is not None:
         raise ValueError("-debug needs per-window K* stats; "
@@ -334,8 +343,8 @@ def run_variants(mode: str, seq_file: SeqFile, vcf: VcfFile, k: int,
 
     def get_pool():
         """The worker pool, spawned at the first heavy cluster.  spawn,
-        not fork: the parent holds CUDA state, and the workers run only
-        the numpy/native enumeration."""
+        not fork: the parent holds CUDA state (and the process group),
+        and the workers run only the numpy/native enumeration."""
         nonlocal pool
         if pool is None:
             import multiprocessing as mp
@@ -345,20 +354,55 @@ def run_variants(mode: str, seq_file: SeqFile, vcf: VcfFile, k: int,
 
     out_path = f"{out_name}.{'polish' if mode == 'polish' else 'filter'}.vcf"
     out = None
-    dbg = DebugWriter(out_name, 0) if debug else None
+
+    # Multi-process, two shapes:
+    #  * striped: sequence stripes -> per-process part files (no
+    #    headers) -> ordered merge with the headers by rank 0;
+    #  * ``spans`` (host-spanning mesh lookups): the sharded table needs
+    #    every process in each probe, so all ranks evaluate every
+    #    cluster and only rank 0 writes.
+    multi = mh.is_active()
+    part = None
+    pid, pcount = mh.process_info() if multi else (0, 1)
+    striped = multi and not spans
+
+    # Debug writers follow the reference's per-thread split (one gz per
+    # writer unit): per rank for striped runs; in spans mode every rank
+    # evaluates identically, so only rank 0 writes.
+    dbg = DebugWriter(out_name, pid if striped else 0) \
+        if debug and (not multi or striped or pid == 0) else None
 
     # checkpoint/resume at the sequence boundary (not with -debug: the
-    # debug gz stream is not offset-restartable)
-    ckpt = Checkpoint(out_name, f"variants-{mode}",
-                      enabled=resume and not debug)
+    # debug gz stream is not offset-restartable).  Striped ranks keep
+    # per-rank checkpoints and resumable part files (no collective runs
+    # inside the striped loop); spans ranks share rank 0's checkpoint,
+    # which only rank 0 writes.
+    ckpt = Checkpoint(f"{out_name}.rank{pid}" if striped else out_name,
+                      f"variants-{mode}", enabled=resume and not debug,
+                      writer=striped or (not multi) or pid == 0)
     skip = 0
+    part_resume = None
     n_selected = 0
     if resume and not debug and (st := ckpt.load()) is not None:
         skip = st["seqs_done"]
         n_selected = st["accum"].get("records", 0)
-        truncate_to(out_path, st["output_offset"])
+        if striped:
+            part_resume = (st["accum"].get("n_extents", 0),
+                           st["output_offset"])
+            if not can_resume_part(out_path, pid, *part_resume):
+                # torn part/idx state on disk: restart this rank's stripe
+                # rather than dropping the checkpointed rows
+                print("-- Part file state unusable; restarting this "
+                      "rank's stripe fresh.", file=log)
+                skip = 0
+                part_resume = None
+                n_selected = 0
+        elif not multi or pid == 0:
+            truncate_to(out_path, st["output_offset"])
         if skip:
             print(f"-- Resuming after {skip} sequences.", file=log)
+    if striped:
+        part = PartWriter(out_path, pid, resume_state=part_resume)
 
     # the fused path's array-native enumeration is ~6x faster than the
     # scalar one, so its pool pays off only from 3 workers
@@ -368,16 +412,19 @@ def run_variants(mode: str, seq_file: SeqFile, vcf: VcfFile, k: int,
         for seq_idx, seq in enumerate(seq_file, 1):
             if seq_idx <= skip:
                 continue
+            if striped and (seq_idx - 1) % pcount != pid:
+                continue
             # the reference opens the output (headers included) at the
             # first sequence, variants or not (merfin-variants.C:313-341)
-            if out is None:
+            if out is None and (not multi or (spans and pid == 0)):
                 out = open(out_path, "ab" if skip else "wb")
                 if not skip:
                     out.write("".join(h + "\n"
                                       for h in vcf.headers).encode())
             clusters = vcf.by_chrom.get(seq.ident)
             if clusters is None:
-                ckpt.save(seq_idx, out.tell(), {"records": n_selected})
+                if out is not None:
+                    ckpt.save(seq_idx, out.tell(), {"records": n_selected})
                 continue
             print(f"Processing sequence {seq.ident} for variants", file=log)
 
@@ -422,9 +469,17 @@ def run_variants(mode: str, seq_file: SeqFile, vcf: VcfFile, k: int,
                 parts.append(res)
             text = "".join(parts)
             n_selected += text.count("\n")
-            out.write(text.encode())
-            out.flush()
-            ckpt.save(seq_idx, out.tell(), {"records": n_selected})
+            if part is not None:
+                part.write_seq(seq_idx, text.encode())
+                if ckpt.enabled:
+                    part.flush_idx()
+                    ckpt.save(seq_idx, part.offset,
+                              {"n_extents": len(part.extents),
+                               "records": n_selected})
+            elif out is not None:
+                out.write(text.encode())
+                out.flush()
+                ckpt.save(seq_idx, out.tell(), {"records": n_selected})
         ok = True
     finally:
         if pool is not None:
@@ -435,7 +490,23 @@ def run_variants(mode: str, seq_file: SeqFile, vcf: VcfFile, k: int,
             pool.join()
         if out is not None:
             out.close()
-        if dbg is not None:
-            dbg.close()
+        if part is not None:
+            part.close()
+    if multi and spans:
+        mh.barrier("variants-spans-done")   # ranks computed identically
+    elif multi:
+        n_selected = int(mh.merge_scalar_across_hosts(n_selected))
+        mh.barrier("variants-parts")
+        # drop per-rank checkpoints BEFORE the merge consumes the parts: a
+        # crash inside the merge re-runs from scratch instead of resuming
+        # against missing part files
+        ckpt.done()
+        mh.barrier("variants-ckpt-clear")
+        if pid == 0:
+            header = "".join(h + "\n" for h in vcf.headers).encode()
+            merge_parts(out_path, pcount, header=header)
+        mh.barrier("variants-merged")
+    if dbg is not None:
+        dbg.close()
     ckpt.done()
     return {"records": n_selected}

@@ -1,2 +1,2 @@
 """Host utilities of the torch port: copies of ``merfin_tpu.utils``'s
-checkpoint and prefetch modules."""
+checkpoint, part-merge and prefetch modules."""

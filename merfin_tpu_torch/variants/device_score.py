@@ -21,8 +21,10 @@ Two deliberate divergences from the JAX scorer: the integer totdk is
 fetched as int64, not cast to f64 first; and every span's overflow count
 is added once, by the one fetch path (there is no fallback fetch).
 
-Not ported: the gather-table probe (``sortjoin=False``) and the sharded
-scorer (``-mesh``).
+``ShardedScorer`` is the same program over the sharded tables of a
+``-mesh`` (``parallel/sharded.py:dual_probe_local``, positional).
+
+Not ported: the gather-table probe (``sortjoin=False``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from merfin_tpu_torch.kcore.pack import pack_transfer_np
 from merfin_tpu_torch.ops.kmer_ops import (U64_MAX, bias, kmer_windows, umin,
                                           unpack_transfer)
 from merfin_tpu_torch.ops.union_join import UnionTable, u32_to_int64
+from merfin_tpu_torch.parallel.sharded import dual_probe_local
 from merfin_tpu_torch.score import value_map as vm_ops
 from merfin_tpu_torch.score.kstar import ProbTable
 from merfin_tpu_torch.score.value_map import ValueMap
@@ -218,6 +221,19 @@ class DeviceScorer:
         adjust, path_start = _planes_from_bits(adj_bits, mark_bits, p,
                                                self.value_map.has_prob)
         fmer, rmer, valid = kmer_windows(codes, k)
+        read_v, asm_v = self._probe(fmer, rmer, valid)
+        missing, dkstr, overflow = _stream_math(
+            self.value_map, self._vm, read_v, asm_v, valid, adjust,
+            path_start)
+        num_m, totdk = _boundary_reduce(missing, dkstr,
+                                        b_start.to(torch.int64),
+                                        b_end.to(torch.int64))
+        return num_m, totdk, overflow
+
+    def _probe(self, fmer, rmer, valid):
+        """(read, asm) int64 values in window order, the even-k
+        palindrome multiplier applied: ONE sort, the union join, a
+        scatter back to window order."""
         canon = torch.where(valid, umin(fmer, rmer),
                             torch.full_like(fmer, U64_MAX))
         keys_s, order = torch.sort(bias(canon))
@@ -228,17 +244,11 @@ class DeviceScorer:
             out[order] = x
             vals.append(u32_to_int64(out))
         read_v, asm_v = vals
-        if k % 2 == 0:                  # fmer + rmer lookups of palindromes
+        if self.k % 2 == 0:             # fmer + rmer lookups of palindromes
             mult = 1 + (fmer == rmer).to(torch.int64)
             read_v = read_v * mult
             asm_v = asm_v * mult
-        missing, dkstr, overflow = _stream_math(
-            self.value_map, self._vm, read_v, asm_v, valid, adjust,
-            path_start)
-        num_m, totdk = _boundary_reduce(missing, dkstr,
-                                        b_start.to(torch.int64),
-                                        b_end.to(torch.int64))
-        return num_m, totdk, overflow
+        return read_v, asm_v
 
     def _launch(self, packed):
         p, _, *arrays = packed
@@ -297,3 +307,36 @@ class DeviceScorer:
         """Numpy in, numpy out: (num_m int64 [P], totdk [P])."""
         return self.fetch_paths(self.dispatch_paths(codes, adjust, starts,
                                                     nis))
+
+
+class ShardedScorer(DeviceScorer):
+    """Fused scoring over mesh-sharded lookup tables (-devscore -mesh).
+
+    The span program runs on d-row 0's device and probes every t-shard
+    of that row (``dual_probe_local(..., positional=True,
+    replicated=True)``: every process of a host-spanning mesh gets the
+    values): the query stream is the whole span, and the "d" axis adds
+    table headroom, not variant throughput, as in the spans design where
+    every process evaluates every cluster (``modes/variants.py``)."""
+
+    def __init__(self, mesh, read_sharded, asm_sharded, k: int, peak: float,
+                 prob_table: ProbTable | None, max_value: int | None = None,
+                 exact_max: bool = False):
+        self.mesh = mesh
+        self.read_sharded = read_sharded
+        self.asm_sharded = asm_sharded
+        self.k = int(k)
+        self.device = mesh.row_device(0)
+        self.value_map = ValueMap(peak, prob_table, max_value or (1 << 19),
+                                  exact_max=exact_max)
+        self.int_path = self.value_map.int_scorer_ok()
+        self._vm = convert.value_map_scorer_tensors(self.value_map,
+                                                    self.device)
+        self.overflow_values = 0
+        self._pack_ex = None
+
+    def _probe(self, fmer, rmer, valid):
+        read_v, asm_v, _ = dual_probe_local(
+            self.read_sharded, self.asm_sharded, 0, fmer, rmer, valid,
+            self.k, positional=True, replicated=True)
+        return read_v, asm_v

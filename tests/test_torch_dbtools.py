@@ -129,10 +129,25 @@ def test_db_tool_matches_jax(tool, world, tmp_path, monkeypatch, capsys):
 
 
 def test_count_multi_host_not_ported(monkeypatch, capsys):
+    """`count` under MERFIN_NUM_PROCESSES=2, once refused, joins the
+    torch.distributed job with the JAX package's environment contract
+    (the two-process count itself: tests/test_torch_multihost.py)."""
+    from merfin_tpu_torch.parallel import multihost as mh
+
+    joined = []
+
+    def fake_init(coordinator, num_processes, process_id):
+        joined.append((coordinator, num_processes, process_id))
+        raise KeyboardInterrupt
+
     monkeypatch.setenv("MERFIN_NUM_PROCESSES", "2")
-    assert p_cli.main(["count", "k=21", "x.fa", "output=db"]) == 1
-    err = capsys.readouterr().err
-    assert err.count("\n") == 1 and "not yet ported" in err
+    monkeypatch.setenv("MERFIN_PROCESS_ID", "1")
+    monkeypatch.delenv("MERFIN_COORDINATOR", raising=False)
+    monkeypatch.setattr(mh, "init", fake_init)
+    with pytest.raises(KeyboardInterrupt):
+        p_cli.main(["count", "k=21", "x.fa", "output=db"])
+    assert joined == [("127.0.0.1:9876", 2, 1)]
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 def _cli(pkg: str, argv, cwd, env):

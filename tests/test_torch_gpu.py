@@ -3,8 +3,10 @@
 stream designs) vs its plain version on random tables, on the windowed
 joins' edge cases and on window tables whose keys repeat, -hist,
 -completeness, -dump and the variant modes on CUDA vs on the CPU, the
-fused variant scorer on CUDA vs on the CPU, and the counter's device
-accumulator and device step vs the numpy counter.
+fused variant scorer on CUDA vs on the CPU, the counter's device
+accumulator and device step vs the numpy counter, the sharded tables'
+probes (one sorted_join launch a shard, never the plain version), and
+-mesh 1x1 on the card vs -mesh 2x4 on 8 logical CPU devices.
 
 They skip where torch.cuda.is_available() is false.  This file imports
 no JAX, so it runs on a machine with a card and no JAX:
@@ -328,3 +330,67 @@ def test_device_count_accumulator(cuda, k, overflow, monkeypatch):
     np.testing.assert_array_equal(sk, hk)
     np.testing.assert_array_equal(sv, hv)
     assert st == ht
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_sharded_probes_launch_the_kernel(cuda, shape, monkeypatch):
+    """Every shard probe of a mesh on the card is one sorted_join launch
+    (T a row), never the plain version; -min/-max may empty a shard."""
+    from merfin_tpu_torch.ops import sorted_join as sj
+    from merfin_tpu_torch.parallel.sharded import ShardedLookup, make_mesh
+
+    def no_plain(*a, **kw):
+        raise AssertionError("a shard probe on the card ran the plain version")
+
+    monkeypatch.setattr(sj, "lookup_plain", no_plain)
+    monkeypatch.setattr(sj.SortedJoinTable, "lookup_plain", no_plain)
+    rng = np.random.default_rng(5)
+    keys = np.unique(rng.integers(0, 1 << 42, size=300_000, dtype=np.uint64))
+    vals = rng.integers(1, 9, size=keys.size).astype(np.uint32)
+    vals[: keys.size // 4] = 1              # the first shard filters empty
+    D, T = shape
+    mesh = make_mesh(devices=[cuda] * (D * T), data=D)
+    sl = ShardedLookup.build((keys, vals, 21), mesh, min_v=2, max_v=7)
+    q = np.concatenate([keys[::5], rng.integers(0, 1 << 42, size=9999,
+                                                dtype=np.uint64),
+                        np.asarray([0, U64_MAX], np.uint64)])
+    before = sj.sorted_join_kernel.launches
+    got = sl.lookup_np(q)
+    torch.cuda.synchronize()
+    assert sj.sorted_join_kernel.launches == before + T
+    keep = (vals >= 2) & (vals <= 7)
+    idx = np.searchsorted(keys, q).clip(0, keys.size - 1)
+    want = np.where((keys[idx] == q) & keep[idx], vals[idx], 0)
+    np.testing.assert_array_equal(got, want.astype(np.uint64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["hist", "completeness", "dump", "polish"])
+def test_mesh_modes_cuda_match_cpu(cuda, mode, tmp_path, monkeypatch):
+    """-mesh 1x1 on the card gives the output and counters of -mesh 2x4
+    on 8 logical CPU devices (the repeat world for -hist, -completeness
+    and -dump; the -prob VCF world for -polish)."""
+    import chip_smoke as cs
+
+    world = cs.parity_world(3, 60_000, k=21,
+                            repeat=0 if mode == "polish" else 40_000)
+    argv = cs.materialize(world, str(tmp_path))
+    argv = cs.vcf_argv(argv, mode) if mode == "polish" else \
+        cs.mode_argv(argv, mode)
+    out = "out.polish.vcf" if mode == "polish" else "out"
+    monkeypatch.setenv("MERFIN_PLATFORM", "cuda")
+    got = cs.run_port_inprocess(argv + ["-mesh", "1x1"],
+                                str(tmp_path / "cuda"), out="out",
+                                output=out)
+    monkeypatch.setenv("MERFIN_CPU_DEVICES", "8")
+    cpu = tmp_path / "cpu"
+    cpu.mkdir()
+    want = cs.run_port_subprocess(argv + ["-mesh", "2x4"], str(cpu), "cpu",
+                                  out="out")
+    assert got[0] == cs._read_output(str(cpu), out)
+    assert got[2] == want[2]
+    if mode == "completeness":
+        assert cs.completeness_lines(got[1]) == cs.completeness_lines(want[1])
+    else:
+        assert len(got[0]) > 0

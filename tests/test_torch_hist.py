@@ -16,6 +16,7 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke as cs
 
@@ -121,8 +122,22 @@ def test_chip_smoke_phases_on_cpu(tmp_path, monkeypatch):
     match the independent numpy counts, and the variant modes give the
     planned records (heavy clusters of 576 paths, 3 pool workers); the
     counter's phase counts the assembly (equal to asm.mkdb) and a read set
-    (equal to numpy's count, in RAM and through a 2 MB spilling budget)."""
+    (equal to numpy's count, in RAM and through a 2 MB spilling budget);
+    the mesh phase's CLI and API runs equal the single-device phases, and
+    the two-process phase's outputs one process's."""
     monkeypatch.setenv("MERFIN_PLATFORM", "cpu")
+    # one intra-op thread here and in the subprocesses: the test workers
+    # share the cores
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _smoke_phases_on_cpu(tmp_path)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _smoke_phases_on_cpu(tmp_path):
     cs.check_small_worlds(str(tmp_path), 0, 30_000, 40_000, "cpu")
     cs.check_small_modes(str(tmp_path), 0, 30_000, "cpu")
     cs.check_small_variants(str(tmp_path), 0, 30_000, "cpu")
@@ -141,6 +156,9 @@ def test_chip_smoke_phases_on_cpu(tmp_path, monkeypatch):
                                  threads=3) == 0
     assert cs._run_count_full(w, str(tmp_path / "full" / "n"), 0,
                               memory_gb=0.002) == 0
+    mesh = cs._run_mesh_full(w, plan, str(tmp_path / "full" / "m"))
+    assert len(mesh) == 5 and set(mesh.values()) == {0}
+    cs._run_two_process(w, str(tmp_path / "two"), 0, 30_000)
 
 
 def test_group_and_stream_paths_agree(tmp_path):
@@ -172,26 +190,41 @@ def test_group_and_stream_paths_agree(tmp_path):
 
 @pytest.mark.parametrize("extra,env", [
     (["-dump", "-mesh", "1x2"], {}), (["-hist", "-mesh", "1x2"], {}),
-    (["-hist"], {"MERFIN_NUM_PROCESSES": "2"}),
-    (["-completeness"], {"MERFIN_NUM_PROCESSES": "2"}),
+    (["-hist", "-mesh", "1x1"], {"MERFIN_NUM_PROCESSES": "2"}),
+    (["-completeness", "-mesh", "1x1"], {"MERFIN_NUM_PROCESSES": "2"}),
     (["-polish", "-vcf", "x.vcf", "-mesh", "1x2"], {}),
-    (["-filter", "-vcf", "x.vcf"], {"MERFIN_NUM_PROCESSES": "2"}),
+    (["-filter", "-vcf", "x.vcf", "-mesh", "1x1"],
+     {"MERFIN_NUM_PROCESSES": "2"}),
 ])
-def test_unported_paths_exit_1(extra, env, monkeypatch, capsys):
+def test_unported_paths_exit_1(extra, env, tmp_path, monkeypatch, capsys):
+    """-mesh and multi-process launches, once refused as not ported, now
+    run the JAX CLI's mesh checks: a mesh larger than the visible devices,
+    and under a multi-process launch (the job's join stubbed: two
+    processes of one device each) a mesh that leaves devices out, exit 1
+    with the JAX CLI's message."""
     from merfin_tpu_torch.cli import main
+    from merfin_tpu_torch.parallel import multihost as mh
 
+    argv = cs.materialize(cs.recipe_world(), str(tmp_path))
+    monkeypatch.setenv("MERFIN_PLATFORM", "cpu")
+    monkeypatch.delenv("MERFIN_CPU_DEVICES", raising=False)
     for key, val in env.items():
         monkeypatch.setenv(key, val)
-    rc = main(extra + ["-sequence", "x.fa", "-readmers", "r", "-seqmers",
-                       "a", "-peak", "2", "-output", "o"])
+    if env:
+        cpu = torch.device("cpu")
+        monkeypatch.setattr(mh, "maybe_init_from_env", lambda log=None: True)
+        monkeypatch.setattr(mh, "global_devices",
+                            lambda: [(0, cpu), (1, cpu)])
+    rc = main(extra + argv[1:] + ["-output", "o"])
     err = capsys.readouterr().err
-    assert rc == 1
-    assert err.count("\n") == 1 and "not yet ported" in err
+    assert rc == 1 and "not yet ported" not in err
+    want = ("ERROR: -mesh 1x1 must use all 2 devices of the multi-host "
+            "slice (e.g. -mesh 2x1).") if env else \
+        "ERROR: -mesh 1x2 needs 2 devices; 1 available."
+    assert err.splitlines()[-1] == want
 
 
 def test_cuda_platform_without_card_raises(monkeypatch):
-    import torch
-
     from merfin_tpu_torch.device import get_device
 
     monkeypatch.setenv("MERFIN_PLATFORM", "cuda")

@@ -4,6 +4,7 @@ numpy-seeded inputs through both."""
 
 import io
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -27,7 +28,9 @@ from merfin_tpu.score import kstar as j_kstar
 from merfin_tpu.score import value_map as j_vm
 from merfin_tpu.table import lookup as j_lookup
 from merfin_tpu.tools import genomescope as j_gs
+from merfin_tpu.count import spill as j_spill
 from merfin_tpu.utils import checkpoint as j_ckpt
+from merfin_tpu.utils import partmerge as j_pm
 from merfin_tpu.utils import prefetch as j_pre
 from merfin_tpu.variants import enumerate as j_enum
 from merfin_tpu.variants import enumerate_fast as j_fast
@@ -44,7 +47,9 @@ from merfin_tpu_torch.score import kstar as p_kstar
 from merfin_tpu_torch.score import value_map as p_vm
 from merfin_tpu_torch.table import lookup as p_lookup
 from merfin_tpu_torch.tools import genomescope as p_gs
+from merfin_tpu_torch.count import spill as p_spill
 from merfin_tpu_torch.utils import checkpoint as p_ckpt
+from merfin_tpu_torch.utils import partmerge as p_pm
 from merfin_tpu_torch.utils import prefetch as p_pre
 from merfin_tpu_torch.variants import enumerate as p_enum
 from merfin_tpu_torch.variants import enumerate_fast as p_fast
@@ -337,6 +342,74 @@ def case_checkpoint(tmp_path, monkeypatch):
         assert not os.path.exists(out + ".ckpt.json")
         assert st == {"mode": "hist", "seqs_done": 3, "output_offset": 40,
                       "accum": {"kasm": 7}}
+
+
+def case_partmerge(tmp_path, monkeypatch):
+    """Part files written, flushed, truncated back to a checkpoint and
+    merged in sequence order by both copies: the same merged bytes, and
+    the same resume verdicts."""
+    rng = np.random.default_rng(8)
+    rows = [(int(i), rng.bytes(int(rng.integers(0, 300))))
+            for i in rng.permutation(40)]
+    out = []
+    for mod in (j_pm, p_pm):
+        name = str(tmp_path / mod.__name__)
+        for pid in range(3):
+            w = mod.PartWriter(name, pid)
+            for idx, data in rows[pid::3][:5]:
+                w.write_seq(idx, data)
+            w.flush_idx()
+            state = (len(w.extents), w.offset)
+            w.write_seq(99 + pid, b"torn")
+            w.close()
+            verdicts = (mod.can_resume_part(name, pid, *state),
+                        mod.can_resume_part(name, pid, state[0], 1 << 30),
+                        mod.can_resume_part(name, pid, 0, 0))
+            w = mod.PartWriter(name, pid, resume_state=state)
+            for idx, data in rows[pid::3][5:]:
+                w.write_seq(idx, data)
+            w.close()
+        mod.merge_parts(name, 3, header=b"#h\n")
+        with open(name, "rb") as f:
+            out.append((f.read(), verdicts))
+        assert not list(tmp_path.glob(f"{mod.__name__}.part*"))
+    assert out[0] == out[1] and out[0][1] == (True, False, True)
+    assert out[0][0] == b"#h\n" + b"".join(d for _, d in sorted(rows))
+
+
+def case_spill_gather(tmp_path, monkeypatch):
+    """SpillStore.gather over two ranks' run directories (the multi-host
+    count's merge): the same runs, slices and merged DB as the JAX
+    package's."""
+    rng = np.random.default_rng(9)
+    dirs = []
+    for r in range(2):
+        d = str(tmp_path / f"rank{r}")
+        store = j_spill.SpillStore(d, 21)
+        for _ in range(2):
+            keys = np.unique(rng.integers(0, 1 << 42, size=700,
+                                          dtype=np.uint64))
+            store.spill(keys, rng.integers(1, 9, size=keys.size)
+                        .astype(np.uint64))
+        dirs.append(d)
+    # the merge consumes a store's runs: the port gathers a copy
+    copies = [str(tmp_path / f"copy{r}") for r in range(2)]
+    for d, c in zip(dirs, copies):
+        shutil.copytree(d, c)
+    a, b = j_spill.SpillStore.gather(dirs, 21), \
+        p_spill.SpillStore.gather(copies, 21)
+    assert [os.path.basename(r[0]) for r in a.runs] == \
+        [os.path.basename(r[0]) for r in b.runs]
+    assert len(a.runs) == 4
+    for s in (0, 40, 63):
+        for i in range(len(a.runs)):
+            for x, y in zip(a.run_slice(i, s), b.run_slice(i, s)):
+                np.testing.assert_array_equal(x, y)
+    j_spill.merge_to_mkdb(str(tmp_path / "j.mkdb"), 21, a, [], 1234)
+    p_spill.merge_to_mkdb(str(tmp_path / "p.mkdb"), 21, b, [], 1234)
+    for name in ("keys.npy", "vals.npy", "mkdb.json"):
+        assert (tmp_path / "j.mkdb" / name).read_bytes() == \
+            (tmp_path / "p.mkdb" / name).read_bytes()
 
 
 def case_prefetch_and_config(tmp_path, monkeypatch):

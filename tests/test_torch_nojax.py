@@ -1,9 +1,10 @@
 """The torch port never imports JAX nor the JAX package: a fresh process
 imports every module of merfin_tpu_torch (and chip_smoke), runs a CPU
 -hist, -completeness, -dump, -polish (fused scorer and host scorer) and
--filter through the CLI, then `count`, `statistics` and a -hist without
--seqmers (which counts its sequence DB), and finds neither 'jax' nor
-'merfin_tpu' in sys.modules."""
+-filter through the CLI, the same on a 1x2 mesh (``parallel/``), a part
+file merge (``utils/partmerge.py``), then `count`, `statistics` and a
+-hist without -seqmers (which counts its sequence DB), and finds neither
+'jax' nor 'merfin_tpu' in sys.modules."""
 
 import os
 import pathlib
@@ -31,6 +32,15 @@ for mode, out in (("-hist", "out.hist"), ("-completeness", "unused"),
         if mode in ("-polish", "-filter") else []
     rc = main([mode] + argv + extra + ["-output", out])
     assert rc == 0, (mode, rc)
+    rc = main([mode] + argv + extra + ["-mesh", "1x2", "-output", "m" + out])
+    assert rc == 0, (mode, "-mesh", rc)
+from merfin_tpu_torch.utils.partmerge import PartWriter, merge_parts
+for pid, rows in enumerate((b"b\\n", b"a\\n")):
+    part = PartWriter("parts.txt", pid)
+    part.write_seq(2 - pid, rows)
+    part.close()
+merge_parts("parts.txt", 2, header=b"#\\n")
+assert open("parts.txt", "rb").read() == b"#\\na\\nb\\n"
 # the database tools and a -hist that counts its sequence DB
 assert main(["count", "k=15", argv[1], "output=asm_count.mkdb"]) == 0
 assert main(["statistics", "asm_count.mkdb"]) == 0
@@ -49,6 +59,7 @@ def test_port_runs_without_jax(tmp_path):
     argv = cs.materialize(cs.recipe_world(), str(tmp_path))[1:]
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     env["MERFIN_PLATFORM"] = "cpu"
+    env["MERFIN_CPU_DEVICES"] = "2"
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(repo=str(REPO)),
          str(tmp_path / "calls.vcf")] + argv,
@@ -70,6 +81,12 @@ def test_port_runs_without_jax(tmp_path):
         assert (tmp_path / "asm.fasta.meryl" / name).read_bytes() == want
     assert (tmp_path / "noseq.hist").read_bytes() == \
         (tmp_path / "out.hist").read_bytes()
+    for a, b in (("out.hist", "mout.hist"), ("out.dump", "mout.dump"),
+                 ("fused.polish.vcf", "mfused.polish.vcf"),
+                 ("host.polish.vcf", "mhost.polish.vcf"),
+                 ("out.filter.vcf", "mout.filter.vcf")):
+        assert (tmp_path / a).read_bytes() == (tmp_path / b).read_bytes()
+    assert proc.stderr.count("-- Sharding tables over a 1x2 device mesh.") == 6
 
 
 def test_no_jax_import_in_sources():

@@ -111,3 +111,30 @@ def test_kover_parts(prob, bounds):
     if not bounds:
         assert int(got[4]) > 0
     np.testing.assert_allclose(float(got[3]), float(want[3]), rtol=1e-12)
+
+
+@pytest.mark.parametrize("peak", [0.0, 2.0, 30.5])
+@pytest.mark.parametrize("prob", [None, PROB])
+def test_score_ops_match_jax(peak, prob):
+    """ops/score_ops.py: prob_table_arrays, getK and getKmetric against
+    the JAX package's jnp twins, bit for bit (NaN and inf included)."""
+    from merfin_tpu.ops import score_ops as j_ops
+    from merfin_tpu_torch.ops import score_ops as p_ops
+    from merfin_tpu_torch.score.kstar import ProbTable as PProbTable
+
+    rng = np.random.default_rng(11)
+    v = rng.integers(0, 200, size=4000).astype(np.uint64)
+    v[:7] = [0, 1, 2, 3, 4, 5, 6]
+    a = rng.integers(0, 9, size=4000).astype(np.uint64)
+    pprob = None if prob is None else PProbTable(prob.copy_k, prob.copy_p)
+    jt = j_ops.prob_table_arrays(prob)
+    pt = p_ops.prob_table_arrays(pprob)
+    assert pt[2] == jt[2]
+    for x, y in zip(pt[:2], jt[:2]):
+        _bits_equal(x, y)
+    jk = j_ops.get_k_jnp(jnp.asarray(v), jnp.asarray(a), peak, *jt)
+    pk = p_ops.get_k(torch.from_numpy(v.view(np.int64)),
+                     torch.from_numpy(a.view(np.int64)), peak, *pt)
+    for x, y in zip(pk, jk):
+        _bits_equal(x, y)
+    _bits_equal(p_ops.k_metric(pk[0], pk[1]), j_ops.k_metric_jnp(jk[0], jk[1]))
