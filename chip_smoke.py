@@ -44,6 +44,12 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               bit 63, n = 0 and 1, ragged lengths, heavy duplication,
               values >= 2^31, and tiles on each side of the windowed
               join's dense/sparse threshold and shared-memory capacity.
+              A route row (no kernel): the gather tables
+              (table/lookup.py, plain torch ops) of the full world's DBs
+              at the -dump dispatch, 2^21 positional windows of scaffold
+              0, one read-DB probe and both probes beside the union
+              route's sort + union_join + scatter at the same shape
+              (wall, CUDA-event and device ms), values equal.
               window_join also on window_edge_cases, tables whose keys
               repeat: runs of 2-5 equal keys, runs across chunk
               boundaries and tile boundaries, a run of 5,000+ keys,
@@ -67,17 +73,20 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               Poisson(30) counts plus 128M error k-mers, -hist through the
               CLI: kasm/kmissing against an independent numpy count, the
               kernel's launch count, zero exactness fallbacks, wall time
-              and bases/s;
+              and bases/s, no gather table placed; then -hist
+              -nosortjoin (the gather tables, no union table, no
+              union_join launch): the same histogram, lines and
+              counters, its wall and split;
   6. completeness full   -completeness through the CLI on the full
               world's DBs: TOTAL readK/undrcpy against an independent
               numpy sum, the 64 slice lines against the totals,
               sorted_join launches equal to the block count; the same on
               a v1 table (window_join); wall, k-mers/s and the split;
   7. dump full   -dump through the CLI against the full world's DBs (the
-              whole union table on the card) for one scaffold and the
-              2,000 contigs: per-sequence missing/kasm against the
-              independent count, the row count, union_join launches,
-              wall and bases/s;
+              whole gather tables on the card, no union table) for one
+              scaffold and the 2,000 contigs: per-sequence missing/kasm
+              against the independent count, the row count, union_join
+              launches (none), wall, bases/s and the tables' split;
   8. variants full   -polish, -filter and -better (fused device scorer)
               through the CLI against the full world's DBs, on a VCF of
               the world's true corrections, 2,000 spurious SNPs, 1,000
@@ -85,9 +94,10 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               the records against the independent list from the world's
               arrays; -polish on the VCF without the heavy clusters,
               with the fused scorer and with the host scorer
-              (-nodevscore, union join), each byte-identical to the
-              first run; records, clusters/s, union_join launches, wall
-              and its split;
+              (-nodevscore, the gather tables: no union table, no
+              union_join launch), each byte-identical to the first run;
+              records, clusters/s, union_join launches, wall and its
+              split; the fused runs place no gather table;
   9. count full   the counter on the card: (a) -completeness through the
               CLI without -seqmers, which counts the 64 Mbp asm.fasta
               into asm.fasta.meryl (equal file for file to the world's
@@ -320,6 +330,10 @@ def materialize(world: dict, d: str) -> list[str]:
     for tag, seqs in (("read", world["reads"]),
                       ("asm", [s for _, s in world["scaffolds"]])):
         keys, counts = canonical_counts([encode_bases(s) for s in seqs], k)
+        if tag == "read":       # counts set by the world, {mer: count}
+            for mer, count in world.get("read_counts", {}).items():
+                key = int("".join(str("ACGT".index(b)) for b in mer), 4)
+                counts[keys == np.uint64(key)] = count
         KmerDB.create(os.path.join(d, f"{tag}.mkdb"), k, keys, counts)
     argv = ["-hist", "-sequence", fasta,
             "-readmers", os.path.join(d, "read.mkdb"),
@@ -516,6 +530,14 @@ def _refmodel():
     return refmodel
 
 
+def _read_counts(refmodel, world: dict) -> dict:
+    """The read DB of a world as refmodel counts it, with the counts the
+    world sets (``read_counts``, canonical mers)."""
+    counts = refmodel.count_canonical(world["reads"], world["k"])
+    counts.update(world.get("read_counts", {}))
+    return counts
+
+
 def _prob_columns(world: dict):
     ck, cp = [], []
     if world["prob"]:
@@ -534,7 +556,7 @@ def oracle(world: dict):
     ck, cp = _prob_columns(world)
     seqs = world["scaffolds"]
     per_seq, undr, over, kasm, kmissing, kover = refmodel.hist_mode(
-        seqs, refmodel.count_canonical(world["reads"], k),
+        seqs, _read_counts(refmodel, world),
         refmodel.count_canonical([s for _, s in seqs], k), k, peak, ck, cp)
     lines = []
     for ii in sorted(undr, reverse=True):
@@ -563,7 +585,7 @@ def oracle_completeness(world: dict) -> list[str]:
     """tests/refmodel.py:completeness_mode as the CLI's TOTAL lines."""
     refmodel = _refmodel()
     total, undrc, c = refmodel.completeness_mode(
-        refmodel.count_canonical(world["reads"], world["k"]),
+        _read_counts(refmodel, world),
         refmodel.count_canonical([s for _, s in world["scaffolds"]],
                                  world["k"]),
         world["peak"], *_prob_columns(world))
@@ -577,7 +599,7 @@ def oracle_dump(world: dict) -> bytes:
     refmodel = _refmodel()
     k = world["k"]
     rows = refmodel.dump_mode(
-        world["scaffolds"], refmodel.count_canonical(world["reads"], k),
+        world["scaffolds"], _read_counts(refmodel, world),
         refmodel.count_canonical([s for _, s in world["scaffolds"]], k),
         k, world["peak"], *_prob_columns(world))
     return "".join(f"{i}\t{p}\t{r:.2f}\t{a:.2f}\t{m:.2f}\n"
@@ -624,9 +646,10 @@ def check_small_worlds(tmp: str, seed: int, bases: int, repeat: int,
             assert "Growing k* histogram" in err
             assert [got_sum[0], got_sum[2]] == [want_sum[0], want_sum[2]], (
                 got_sum, want_sum)
-            if platform == "cuda":
+            if platform == "cuda":     # the CPU on the card's route
                 c_hist, c_err, c_counters = run_port_subprocess(
-                    argv, _mkdir(os.path.join(d, "cpu")), "cpu")
+                    argv + ["-sortjoin"], _mkdir(os.path.join(d, "cpu")),
+                    "cpu")
                 assert c_hist == hist, "repeat world: CUDA hist != CPU hist"
                 assert c_err == err, "repeat world: CUDA stderr != CPU stderr"
                 assert c_counters == counters, (c_counters, counters)
@@ -1043,10 +1066,17 @@ def time_span_program(table, w: dict, packed, reps: int) -> float:
     (inputs already on the card; CUDA events around each run)."""
     import torch
 
+    from merfin_tpu_torch.table.lookup import DeviceLookup
     from merfin_tpu_torch.variants.device_score import DeviceScorer
 
-    scorer = DeviceScorer(table, w["k"], w["peak"], None,
-                          max_value=int(w["read_max"]), exact_max=True)
+    # the union-route scorer, given phase 3's union table instead of
+    # merging its own from the lookups' rows
+    empty = DeviceLookup(np.zeros(0, np.uint64), np.zeros(0, np.uint32),
+                         w["k"], device=table.device)
+    scorer = DeviceScorer(empty, empty, w["k"], w["peak"], None,
+                          max_value=int(w["read_max"]), exact_max=True,
+                          sortjoin=True)
+    scorer.table = table
     args = [torch.from_numpy(np.ascontiguousarray(x)).to(table.device)
             for x in packed[2:]]
     scorer._score_stream(packed[0], *args)       # warm up
@@ -1145,19 +1175,24 @@ def device_ms(fn, reps: int = 10) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    assert busy > 0, "no device time in the profiler's trace"
-    return busy / reps / 1e3
+    # a trace now and then comes back without its device events (seen on
+    # the H100 machine); such a trace is taken again, up to 3 times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        busy, end = 0.0, float("-inf")
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        if busy > 0:
+            return busy / reps / 1e3
+    raise AssertionError("no device time in 3 profiler traces")
 
 
 def measure(keys, q, nv: int, reps: int, kernel_fn, plain_fn,
@@ -1237,6 +1272,95 @@ def check_kernel(table, q_np: np.ndarray, reps: int):
                         lambda: table.lookup2_sorted(q),
                         lambda: table.lookup2_plain(q),
                         ("bsearch_ms", old)), hits
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Median host wall ms of ``fn`` with the card synchronized after."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def gather_route(w: dict, rdb, adb, table, windows: int, reps: int) -> dict:
+    """Phase 3's route row (not a kernel): the -dump dispatch's positional
+    probes of the gather tables (plain torch ops, no kernel) beside the
+    union route at the same shape.  Queries: the canonical mers of the
+    first ``windows`` windows of scaffold 0 in window order, invalid
+    windows as the engine probes them (their Ns read as A).  Times (wall,
+    CUDA events, profiler device time) of one read-DB probe, of the dump
+    step's two probes, of the union route's sort + union_join + scatter
+    back to window order, and of each block-strategy table's probe as
+    the JAX package writes it (an [M, rows, 16] index, where the port
+    copies rows of an overlapping view); the values of all equal."""
+    import torch
+
+    from merfin_tpu_torch.ops.kmer_ops import (bias, canonical_and_mult,
+                                              kmer_windows)
+    from merfin_tpu_torch.table.lookup import DeviceLookup
+
+    t0 = time.perf_counter()
+    rl, al = (DeviceLookup(db.keys, db.vals, w["k"], device="cuda")
+              for db in (rdb, adb))
+    build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rl.tree(), al.tree()
+    torch.cuda.synchronize()
+    place = time.perf_counter() - t0
+    codes = torch.from_numpy(w["asm_first"][: windows + w["k"] - 1]).cuda()
+    fmer, rmer, _ = kmer_windows(codes, w["k"])
+    canon, _ = canonical_and_mult(fmer, rmer)
+
+    def union():
+        keys_s, order = torch.sort(bias(canon))
+        out = []
+        for x in table.lookup2_sorted(bias(keys_s)):
+            y = torch.empty_like(x)
+            y[order] = x
+            out.append(y)
+        return out
+
+    r_u, a_u = union()
+    assert torch.equal(rl.lookup(canon), r_u.to(torch.int64) & 0xFFFFFFFF)
+    assert torch.equal(al.lookup(canon), a_u.to(torch.int64) & 0xFFFFFFFF)
+    row = dict(windows=windows, tables=[(x.strategy, x.rows, x.bits)
+                                        for x in (rl, al)],
+               table_build_s=build, table_place_s=place,
+               gather_gb=(rl.memory_bytes() + al.memory_bytes()) / 1e9)
+    runs = [("read", lambda: rl.lookup(canon)),
+            ("dump_step", lambda: (rl.lookup(canon), al.lookup(canon))),
+            ("union", union)]
+    for db, lk in (("read", rl), ("asm", al)):
+        if lk.strategy == "block":
+            assert torch.equal(indexed_block(lk, canon), lk.lookup(canon))
+            runs += [(f"{db}_block", lambda lk=lk: lk.lookup(canon)),
+                     (f"{db}_block_indexed",
+                      lambda lk=lk: indexed_block(lk, canon))]
+    for tag, fn in runs:
+        fn()
+        row[tag] = dict(wall_ms=_wall_ms(fn, reps), ms=_median_ms(fn, reps),
+                        device_ms=device_ms(fn))
+    return row
+
+
+def indexed_block(lk, q):
+    """A gather table's block probe as the JAX package writes it
+    (``merfin_tpu/table/lookup.py:229-240``): an [M, rows, 16] index."""
+    import torch
+
+    keys, vals, offsets = lk.tree()
+    b = (q >> lk.shift) & ((1 << (64 - lk.shift)) - 1)
+    r = torch.clamp(offsets[b].to(torch.int64) // lk.window,
+                    max=lk.nblocks - lk.rows)
+    rows = r[:, None] + torch.arange(lk.rows, device=q.device)
+    match = keys.view(-1, lk.window)[rows] == q[:, None, None]
+    v = torch.where(match, vals.view(-1, lk.window)[rows], 0)
+    return v.sum(dim=(1, 2), dtype=torch.int64) & 0xFFFFFFFF
 
 
 def check_single(table, q_np: np.ndarray, reps: int):
@@ -1645,7 +1769,29 @@ def main() -> int:
                 f"reduce, inputs on the card): {span_ms:.4f} ms, union_join "
                 f"{100 * span_t['ms'] / span_ms:.1f}% of it (median of "
                 f"{args.reps}; {smi})")
+            route = gather_route(w, rdb, adb, table, 1 << 21, args.reps)
+            say(f"  route row, -dump dispatch ({route['windows']} positional "
+                f"windows; gather tables (strategy, rows, bucket bits): read "
+                f"DB {route['tables'][0]}, asm DB {route['tables'][1]}; "
+                f"{route['gather_gb']:.2f} GB, built "
+                f"{route['table_build_s']:.1f} s, placed "
+                f"{route['table_place_s']:.1f} s): values equal the union "
+                f"route's; " + "; ".join(
+                    f"{tag} {t['wall_ms']:.4f} ms wall, {t['ms']:.4f} ms "
+                    f"events, {t['device_ms']:.4f} ms device"
+                    for tag, t in ((lab, route[key]) for lab, key in (
+                        ("read-DB gather probe", "read"),
+                        ("both gather probes", "dump_step"),
+                        ("union sort + join + scatter", "union"),
+                        ("read-DB block probe", "read_block"),
+                        ("JAX-literal read-DB block probe",
+                         "read_block_indexed"),
+                        ("asm-DB block probe", "asm_block"),
+                        ("JAX-literal asm-DB block probe",
+                         "asm_block_indexed")) if key in route))
+                + f" (median of {args.reps}; {smi})")
             del table
+            torch.cuda.empty_cache()
             tabs, qp = palindrome_table(rng)
             ptable = UnionTable.from_dbs(*tabs, "cuda")
             errs = [err, err2, err4, check_kernel(ptable, qp, 0)[0]]
@@ -1740,9 +1886,11 @@ def _run_full(w: dict, cwd: str) -> int:
              "-- Using sorted-join", "K-mers not found")
     log = StampedLog(marks)
     union_join_kernel.launches = 0
-    hist, err, counters = run_port_inprocess(w["argv"], cwd, log)
+    with gather_timers() as tables:
+        hist, err, counters = run_port_inprocess(w["argv"], cwd, log)
     if on_card:
         torch.cuda.synchronize()
+        assert tables["place"] == 0.0, "the union route placed a gather table"
     wall = time.perf_counter() - log.t0
     launches = union_join_kernel.launches
     summary = summary_of(err)
@@ -1759,13 +1907,63 @@ def _run_full(w: dict, cwd: str) -> int:
         assert launches > 0, "the full -hist run never launched the kernel"
     w["hist_out"], w["hist_err"] = hist, err    # phases 10 and 11
     t = [log.stamps[m] for m in marks]
+    if t[2] is None:        # the CPU's default: the gather route
+        t[2] = t[1]
     say(f"  split: start->DB load {t[0]:.1f} s, DB load {t[1] - t[0]:.1f} s, "
         f"union table build+upload {t[2] - t[1]:.1f} s, hist loop "
         f"{t[3] - t[2]:.1f} s, output {wall - t[3]:.1f} s")
     say(f"  -hist wall {wall:.1f} s for {w['bases']} bases: "
         f"{w['bases'] / wall:.0f} bases/s; kernel launches {launches}; "
         f"counters {counters}")
+
+    # -nosortjoin: the gather route, no union table, no union_join launch
+    marks = ("-- Loading kmers", "-- Generate histogram", "K-mers not found")
+    log = StampedLog(marks)
+    union_join_kernel.launches = 0
+    with gather_timers() as spent, refused_union():
+        g_hist, g_err, g_counters = run_port_inprocess(
+            w["argv"] + ["-nosortjoin"], cwd + "-gather", log)
+    if on_card:
+        torch.cuda.synchronize()
+    g_wall = time.perf_counter() - log.t0
+    assert union_join_kernel.launches == 0, union_join_kernel.launches
+    assert g_hist == hist and g_counters == counters, g_counters
+    assert g_err == err.replace(
+        "-- Using sorted-join lookup kernel for -hist.\n", ""), \
+        "-nosortjoin stderr != -hist's"
+    t = [log.stamps[m] for m in marks]
+    say(f"  -hist -nosortjoin (gather tables): phase 5's histogram, lines "
+        f"and counters; wall {g_wall:.1f} s: DB load + gather-table build "
+        f"{t[1] - t[0]:.1f} s (build {spent['build']:.1f}), hist loop "
+        f"{t[2] - t[1]:.1f} s (first placement {spent['place']:.1f}), "
+        f"output {g_wall - t[2]:.1f} s; union_join launches 0")
     return launches
+
+
+def gather_timers():
+    """Seconds spent building the gather tables on the host
+    (``DeviceLookup.__init__``) and placing them (``tree``, whose first
+    call copies the table to the device)."""
+    from merfin_tpu_torch.table.lookup import DeviceLookup
+
+    return timers({"build": (DeviceLookup, "__init__"),
+                   "place": (DeviceLookup, "tree")})
+
+
+@contextlib.contextmanager
+def refused_union():
+    """A block in which building a UnionTable fails."""
+    from merfin_tpu_torch.ops.union_join import UnionTable
+
+    def refuse(*a, **kw):
+        raise AssertionError("a union table was built on the gather route")
+
+    saved = UnionTable.__init__
+    UnionTable.__init__ = refuse
+    try:
+        yield
+    finally:
+        UnionTable.__init__ = saved
 
 
 def _on_card() -> bool:
@@ -1882,9 +2080,10 @@ def _run_completeness_full(w: dict, cwd: str) -> dict:
 
 def _run_dump_full(w: dict, cwd: str) -> int:
     """Phase 7: -dump through the CLI against the full world's DBs (the
-    whole union table on the card) for one scaffold and the contigs:
-    per-sequence missing and cumulative kasm against the independent
-    count, the row count, and the union-join launches of that run."""
+    whole gather tables on the card; no union table is built) for one
+    scaffold and the contigs: per-sequence missing and cumulative kasm
+    against the independent count, the row count, and the union-join
+    launches of that run (none)."""
     import torch
 
     from merfin_tpu_torch.ops.union_join import union_join_kernel
@@ -1895,7 +2094,9 @@ def _run_dump_full(w: dict, cwd: str) -> int:
     marks = ("-- Loading kmers", "-- Dump per-base", "Processing sequence")
     log = StampedLog(marks)
     union_join_kernel.launches = 0
-    rows, err, counters = run_port_inprocess(argv, cwd, log, out="out.dump")
+    with gather_timers() as spent, refused_union():
+        rows, err, counters = run_port_inprocess(argv, cwd, log,
+                                                 out="out.dump")
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - log.t0
@@ -1916,11 +2117,11 @@ def _run_dump_full(w: dict, cwd: str) -> int:
     w["dump_digest"] = hashlib.sha256(rows).hexdigest()   # phase 10
     w["dump_lines"] = [ln for ln in err.splitlines() if ln.count("\t") == 3]
     assert counters == {c: 0 for c in COUNTERS}, counters
-    if on_card:
-        assert launches > 0, "the full -dump run never launched the kernel"
+    assert launches == 0, "the -dump run launched the union join"
     t = [log.stamps[m] for m in marks]
-    say(f"  split: DB load {t[1] - t[0]:.1f} s, union table build+upload "
-        f"{t[2] - t[1]:.1f} s, dump loop + rows {wall - t[2]:.1f} s")
+    say(f"  split: DB load + gather-table build {t[1] - t[0]:.1f} s (build "
+        f"{spent['build']:.1f}), dump loop + rows {wall - t[1]:.1f} s "
+        f"(first placement {spent['place']:.1f})")
     say(f"  -dump wall {wall:.1f} s for {w['dump_bases']} bases "
         f"({len(got)} sequences, {n_rows} rows, {len(rows)} bytes, "
         f"missing {cum_mis}): {w['dump_bases'] / wall:.0f} bases/s; "
@@ -1995,9 +2196,10 @@ def _run_variants_full(w: dict, plan: dict, cwd: str,
     * -better: the same records as -polish (each correction's ALT path
       misses fewer k-mers than REF; no spurious path does);
     * -polish on light.vcf (no heavy clusters), once with the fused
-      scorer (the default) and once with the host scorer (-nodevscore):
-      each byte-identical to the fused -polish output on calls.vcf, and
-      the two variant-loop times side by side.
+      scorer (the default) and once with the host scorer (-nodevscore,
+      on the gather tables: no union table, no union_join launch): each
+      byte-identical to the fused -polish output on calls.vcf, and the
+      two variant-loop times side by side.
 
     Reports records, clusters/s, the wall and its split; returns the
     union_join launches of these runs."""
@@ -2021,7 +2223,9 @@ def _run_variants_full(w: dict, plan: dict, cwd: str,
         run = mode_argv(argv, mode) + ["-vcf", vcf] + flags + extra
         log = StampedLog(marks)
         union_join_kernel.launches = 0
-        with variant_timers() as spent:
+        host = "-nodevscore" in flags
+        with variant_timers() as spent, gather_timers() as tables, \
+                refused_union() if host else contextlib.nullcontext():
             outs[tag], err, _ = run_port_inprocess(
                 run, os.path.join(cwd, tag), log, out="out",
                 output=variant_vcf(run))
@@ -2032,8 +2236,11 @@ def _run_variants_full(w: dict, plan: dict, cwd: str,
         clusters = sum(int(ln.split(" down to ")[1].split()[0])
                        for ln in err.splitlines() if " down to " in ln)
         n_rec = vcf_records(outs[tag])
-        if on_card:
-            assert union_join_kernel.launches > 0, tag
+        if host:
+            assert union_join_kernel.launches == 0, tag
+        elif on_card:       # the fused scorer's union route places no
+            assert union_join_kernel.launches > 0, tag   # gather table
+            assert tables["place"] == 0.0, tag
         t = {m: log.stamps[m] for m in marks}
         loop = loops[tag] = t["Bye!"] - t["Processing sequence"]
         rest = loop - sum(spent.values())
@@ -2042,10 +2249,13 @@ def _run_variants_full(w: dict, plan: dict, cwd: str,
             f"the variant loop); union_join launches "
             f"{union_join_kernel.launches}")
         say(f"    split: DB load {t['-- Opening vcf'] - t['-- Loading kmers']:.1f}"
-            f" s, VCF + clusters {t['-- Generate variant'] - t['-- Opening vcf']:.1f}"
-            f" s, union table build+upload (and scorer) "
+            f" s (gather-table build {tables['build']:.1f}), VCF + clusters "
+            f"{t['-- Generate variant'] - t['-- Opening vcf']:.1f} s, "
+            f"{'gather tables' if host else 'union table build+upload'} "
+            f"(and scorer) "
             f"{t['Processing sequence'] - t['-- Generate variant']:.1f} s, "
-            f"variant loop {loop:.1f} s (main thread: dispatch "
+            f"variant loop {loop:.1f} s (first gather-table placement "
+            f"{tables['place']:.1f}; main thread: dispatch "
             f"{spent['dispatch']:.1f}, fetch/device wait "
             f"{spent['fetch']:.1f}, selection {spent['select']:.1f}, "
             f"enumeration wait + host scoring {rest:.1f})")

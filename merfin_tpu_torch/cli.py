@@ -7,13 +7,15 @@ by swapping the binary name:
     merfin-tpu-torch -hist -sequence asm.fasta -readmers read.mkdb \\
                      -seqmers asm.mkdb -peak 106.7 -output out.hist
 
--hist and -dump run on the union sorted join (``-sortjoin`` and
-``-nosortjoin`` are accepted; the JAX package's gather table is not
-ported, so -nosortjoin only drops the line that names the sorted join),
--completeness on the single-value sorted join.  The variant modes
+The lookup routes are the JAX CLI's: -dump probes the gather tables
+(``table/lookup.py``); -hist takes the union sorted join with
+``-sortjoin`` and the gather tables with ``-nosortjoin``, and without
+either the union join on a card and the gather tables on the CPU;
+-completeness runs on the single-value sorted join.  The variant modes
 (-filter, -polish, -better, -strict, -loose) score candidate paths with
-the fused device scorer or, for -debug, -nodevscore and -polish with a
--prob table, with the host scorer; both probe the union join.  Without
+the fused device scorer (the union join on a card, the gather tables on
+the CPU) or, for -debug, -nodevscore and -polish with a -prob table,
+with the host scorer, which probes the gather tables.  Without
 -seqmers every mode first counts <seq.fasta> into <basename>.meryl on
 the device.  The meryl-analog database tools (count / import / print /
 export / statistics / histogram / intersect / union-sum / subtract /
@@ -141,8 +143,7 @@ def _usage() -> None:
         "         -output   <output>        \n"
         "\n"
         "  The PyTorch/CUDA port of merfin-tpu.  It accepts merfin-tpu's flags;\n"
-        "  -hist, -dump, -completeness and the variant modes run (on the\n"
-        "  sorted-join kernels; -sortjoin and -nosortjoin are accepted), -resume\n"
+        "  -hist, -dump, -completeness and the variant modes run, -resume\n"
         "  restarts -hist, -dump and the variant modes at a sequence boundary.\n"
         "  Without -seqmers, <seq.fasta>.meryl is counted from -sequence first.\n"
         "\n"
@@ -170,6 +171,9 @@ def _usage() -> None:
         "   Optional: -prob <file>  use probabilities to adjust multiplicity to copy number (recommended)\n"
         "             -min m / -max m  ignore read kmers with value below / above m\n"
         "             -memory m        don't use more than m GB memory for loading mers\n"
+        "             -sortjoin / -nosortjoin   probe the union sorted join / the\n"
+        "                              gather tables (default: the join on cuda,\n"
+        "                              the gather tables on cpu)\n"
         "   Output: k* <tab> frequency; QV at the end, in stderr.\n"
         "\n"
         "  -dump\n"
@@ -352,9 +356,9 @@ def run(cfg: MerfinConfig) -> int:
     else:
         print(f"-- Loading kmers from '{cfg.read_db_name}' into lookup table.", file=log)
         read_lookup = build_lookup(read_db, min_v=cfg.min_v, max_v=cfg.max_v,
-                                   host=True)
+                                   device=device)
         print(f"-- Loading kmers from '{cfg.seq_db_name}' into lookup table.", file=log)
-        asm_lookup = build_lookup(asm_db, host=True)
+        asm_lookup = build_lookup(asm_db, device=device)
 
     seq_file = SeqFile(cfg.seq_name)
 
@@ -368,19 +372,25 @@ def run(cfg: MerfinConfig) -> int:
                 asm_max_value=_db_max(asm_db))
         from merfin_tpu_torch.modes.engine import KstarEngine
 
-        return KstarEngine(read_lookup, asm_lookup, k, cfg.peak,
-                           prob_table=prob, max_value=_db_max(read_db),
-                           exact_max=True, asm_max_value=_db_max(asm_db),
-                           device=device)
+        sortjoin = cfg.sortjoin
+        if cfg.report_type != "hist":
+            sortjoin = False   # dump needs positional output
+        elif sortjoin is None:  # auto: the union join on a card
+            sortjoin = device.type != "cpu"
+        engine = KstarEngine(read_lookup, asm_lookup, k, cfg.peak,
+                             prob_table=prob, max_value=_db_max(read_db),
+                             sortjoin=sortjoin, exact_max=True,
+                             asm_max_value=_db_max(asm_db))
+        if engine.sortjoin:
+            print("-- Using sorted-join lookup kernel for -hist.", file=log)
+        return engine
 
     if cfg.report_type == "hist":
         from merfin_tpu_torch.modes.hist import run_hist
 
         print(f"-- Generate histogram of the k* metric to '{cfg.out_name}'.", file=log)
-        engine = make_engine()
-        if mesh is None and cfg.sortjoin is not False:
-            print("-- Using sorted-join lookup kernel for -hist.", file=log)
-        run_hist(engine, seq_file, cfg.out_name, log=log, resume=cfg.resume)
+        run_hist(make_engine(), seq_file, cfg.out_name, log=log,
+                 resume=cfg.resume)
     elif cfg.report_type == "dump":
         from merfin_tpu_torch.modes.dump import run_dump
 
@@ -388,23 +398,21 @@ def run(cfg: MerfinConfig) -> int:
         run_dump(make_engine(), seq_file, cfg.out_name,
                  skip_missing=cfg.skip_missing, log=log, resume=cfg.resume)
     elif _run_variant_mode(cfg, k, read_db, read_lookup, asm_lookup, prob,
-                           seq_file, device, log, mesh=mesh) != 0:
+                           seq_file, log, mesh=mesh) != 0:
         return 1
     print("Bye!", file=log)
     return 0
 
 
 def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
-                      asm_lookup, prob, seq_file, device, log,
-                      mesh=None) -> int:
+                      asm_lookup, prob, seq_file, log, mesh=None) -> int:
     """The variant modes, as the JAX CLI runs them: the VCF and its
     clusters, the devscore rule, then the fused device scorer or the host
-    scorer, on one union table or, with ``mesh``, on the sharded tables
-    (on a mesh over several processes every rank evaluates every
-    cluster)."""
+    scorer, on the lookups or, with ``mesh``, on the sharded tables (on a
+    mesh over several processes every rank evaluates every cluster).  The
+    host scorer probes ``lookup_np`` of each table."""
     from merfin_tpu_torch.io.vcf import VcfFile
     from merfin_tpu_torch.modes.variants import run_variants
-    from merfin_tpu_torch.ops.union_join import UnionTable, host_lookups
     from merfin_tpu_torch.variants.device_score import (DeviceScorer,
                                                         ShardedScorer)
 
@@ -427,12 +435,6 @@ def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
         print("ERROR: -debug needs per-window K* stats; it cannot run "
               "with -devscore.", file=log)
         return 1
-    if mesh is not None:
-        lookup_read, lookup_asm = read_lookup.lookup_np, asm_lookup.lookup_np
-    else:
-        table = UnionTable.from_dbs(read_lookup.keys, read_lookup.vals,
-                                    asm_lookup.keys, asm_lookup.vals, device)
-        lookup_read, lookup_asm = host_lookups(table)
     scorer = None
     if use_dev:
         print("-- Using fused device scoring (-devscore).", file=log)
@@ -441,7 +443,7 @@ def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
                                    cfg.peak, prob, max_value=_db_max(read_db),
                                    exact_max=True)
         else:
-            scorer = DeviceScorer(table, k, cfg.peak, prob,
+            scorer = DeviceScorer(read_lookup, asm_lookup, k, cfg.peak, prob,
                                   max_value=_db_max(read_db), exact_max=True)
         if (cfg.report_type == "polish" and cfg.devscore is None
                 and not scorer.value_map.int_scorer_ok()):
@@ -450,9 +452,9 @@ def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
             scorer.close()
             scorer = None
     try:
-        run_variants(cfg.report_type, seq_file, vcf, k, lookup_read,
-                     lookup_asm, cfg.peak, prob, cfg.out_name, comb=cfg.comb,
-                     debug=cfg.debug, log=log, resume=cfg.resume,
+        run_variants(cfg.report_type, seq_file, vcf, k,
+                     read_lookup.lookup_np, asm_lookup.lookup_np, cfg.peak,
+                     prob, cfg.out_name, comb=cfg.comb, debug=cfg.debug, log=log, resume=cfg.resume,
                      threads=cfg.threads,
                      spans=mesh is not None and mesh.spans_hosts,
                      scorer=scorer)

@@ -14,6 +14,9 @@
     4 value byte planes of ``build_rec_np`` (join_kernel4.py:128-171).
 * A JAX ``DeviceScorer``'s union table (``_sj_union``, either form
   above) -> the same three arrays.
+* A gather table: ``DeviceLookup``'s bucket geometry (bits, shift,
+  rows, strategy, search steps), its padded keys and values and its
+  offsets -> the port's ``DeviceLookup`` with the same state.
 * The value map and the bin tables: the host arrays of
   ``ValueMap``/``BinTable`` as they are, placed on the device; the
   scorer flavour of the value map (``ValueMap.device_arrays_scorer``)
@@ -24,6 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from merfin_tpu_torch.table.lookup import DeviceLookup
 
 # join_kernel4.py's record geometry (8 key planes then 4 bytes for each
 # u32 value column, of 64 rows x 128 lanes per 8192-key segment, then 8
@@ -104,6 +109,24 @@ def union_from_device_scorer(scorer):
 def single_from_rec(rec, seg_first=None, n: int | None = None):
     """``SortJoinTableV4`` records -> (keys u64, vals u32)."""
     return decode_rec(rec, 1, seg_first, n)
+
+
+def device_lookup_from_jax(lookup, device) -> DeviceLookup:
+    """A JAX ``DeviceLookup`` -> the port's, with its buckets, strategy
+    and padding as they are (not rebuilt), placed lazily on ``device``."""
+    port = DeviceLookup.__new__(DeviceLookup)
+    for name in ("k", "n", "window", "strategy", "bits", "shift", "rows",
+                 "windowed", "search_iters", "nblocks"):
+        setattr(port, name, getattr(lookup, name))
+    port.device = torch.device(device)
+    keys, vals, offsets = (np.asarray(x) for x in lookup.tree())
+    port._host = (np.array(keys, np.uint64).view(np.int64),
+                  np.array(vals, np.uint32).view(np.int32),
+                  np.array(offsets, np.int32))
+    port._tree = None
+    port.keys_np = np.asarray(lookup.keys_np, np.uint64)
+    port.vals_np = np.asarray(lookup.vals_np, np.uint32)
+    return port
 
 
 def value_map_tensors(value_map, device):

@@ -1,24 +1,30 @@
 """The streaming K* engine for -hist and -dump (port of
-``merfin_tpu/modes/engine.py``, union sorted-join path).
+``merfin_tpu/modes/engine.py``).
 
 Sequences are cut into fixed-size windows with k-1 overlap; each batch of
 chunks runs one device step: unpack the 2-bit transfer planes, k-mer
-windows, canonical mer, ONE sort of the canonical mers (invalid windows
-sort last as u64::MAX sentinels), the union sorted join (one probe gives
-the read and the asm value), getK via the value map, classification, the
-histogram bins and the integer kover parts.  Every consumer is a
-reduction, so the sort's permutation never matters.  The per-sequence
-state stays on the device and is fetched once per sequence.
+windows, canonical mer, the two DB values, getK via the value map,
+classification, the histogram bins and the integer kover parts.  The
+per-sequence state stays on the device and is fetched once per sequence.
+
+Two routes give the DB values, as in the JAX package:
+
+* the gather route (``sortjoin=False``, the default): two positional
+  probes of the gather tables (``table/lookup.py:DeviceLookup``).
+  Invalid windows are probed like any other and masked after the value
+  map, so the overflow count sees them, as JAX's does.  Every -dump step
+  takes this route (it needs values by position);
+* the union route (``sortjoin=True``, -hist only): ONE sort of the
+  canonical mers (invalid windows sort last as u64::MAX sentinels) and
+  the union sorted join (one probe gives the read and the asm value).
+  Every consumer is a reduction, so the sort's permutation never
+  matters; the even-k x2 flag and the group path's segment ids follow
+  the sort through its permutation (argsort + gather).
 
 Even k: palindromic windows (fmer == rmer) double both values
-(merfin-globals.C:101-110); the x2 flag, and the group path's segment
-ids, follow the sort through its permutation (argsort + gather).
+(merfin-globals.C:101-110).
 
--dump needs values by position.  The JAX package takes them from a
-gather table; here the dump step rides the same sorted union join and
-scatters the values back through the sort's permutation, on the device.
-
-Not ported (see ROADMAP.md): the gather path, the two-table join and the
+Not ported (see ROADMAP.md): the two-table join and the
 ``MERFIN_HIST_BOUNDS=runs`` counting variant.
 """
 
@@ -31,9 +37,9 @@ import numpy as np
 import torch
 
 from merfin_tpu_torch import convert
-from merfin_tpu_torch.device import get_device
 from merfin_tpu_torch.kcore.pack import pack_transfer_np
-from merfin_tpu_torch.ops.kmer_ops import (U64_MAX, bias, kmer_windows,
+from merfin_tpu_torch.ops.kmer_ops import (U64_MAX, bias,
+                                          canonical_and_mult, kmer_windows,
                                           seg_from_marks, umin,
                                           unpack_transfer)
 from merfin_tpu_torch.ops.union_join import UnionTable, u32_to_int64
@@ -49,7 +55,6 @@ from merfin_tpu_torch.utils.prefetch import prefetch_iter
 NBINS = 1 << 14          # default k* bins per side
 PAD_CODE = 4
 SEG_MAX = 1024           # max sequences packed into one group dispatch
-DUMP_BATCH = 4           # chunk rows of one packed -dump group
 
 
 class BinOverflow(RuntimeError):
@@ -176,21 +181,28 @@ def seg_counts_by_sort(seg, valid, missing):
 
 
 class KstarEngine:
-    """-hist engine on the union sorted join.
+    """-hist and -dump engine.
 
-    read_lookup/asm_lookup: host tables with ``keys``/``vals`` (the
-    ``build_lookup(..., host=True)``)."""
+    read_lookup/asm_lookup: ``DeviceLookup``s (the ``build_lookup(...)``)
+    on the engine's device, placed at the first gather step; the union
+    route reads only their host rows (``keys_np``/``vals_np``)."""
 
     def __init__(self, read_lookup, asm_lookup, k: int, peak: float,
                  prob_table: ProbTable | None = None,
-                 chunk: int = 1 << 19, batch: int = 2,
-                 max_value: int | None = None, exact_max: bool = False,
-                 asm_max_value: int | None = None, device=None):
-        self.device = torch.device(device) if device is not None \
-            else get_device()
+                 chunk: int = 1 << 19, batch: int | None = None,
+                 max_value: int | None = None, sortjoin: bool = False,
+                 exact_max: bool = False,
+                 asm_max_value: int | None = None):
+        self.device = read_lookup.device
+        self.read_lookup = read_lookup
+        self.asm_lookup = asm_lookup
         self.k = int(k)
         self.peak = float(peak)
         self.chunk = int(chunk)
+        # the JAX package's batch rule: the gather route materializes
+        # [windows, rows, window] temporaries, so its batch stays small
+        if batch is None:
+            batch = 2 if sortjoin else 4
         self.batch = int(batch)
         self.prob_table = prob_table
         # getK and the bins come from host-exact tables (copies of the
@@ -206,16 +218,19 @@ class KstarEngine:
         self.bin_fallbacks = 0
         self.kover_fallbacks = 0
 
+        self.sortjoin = bool(sortjoin)
         self.table = UnionTable.from_dbs(
-            read_lookup.keys, read_lookup.vals,
-            asm_lookup.keys, asm_lookup.vals, self.device)
+            read_lookup.keys_np, read_lookup.vals_np,
+            asm_lookup.keys_np, asm_lookup.vals_np, self.device) \
+            if self.sortjoin else None
         self._vm = convert.value_map_tensors(self.value_map, self.device)
         self._bins = convert.bin_table_tensors(self.bin_table, self.device)
         self.nbins = NBINS
         self.group_capacity = self.batch * self.chunk
-        # -dump packs groups of DUMP_BATCH rows, as the JAX CLI's dump
-        # engine does (batch 4), so both emit the same groups
-        self.dump_group_capacity = DUMP_BATCH * self.chunk
+        # a packed -dump group rides the gather tables whatever the
+        # route: its rows are capped on their own
+        self.dump_batch = min(self.batch, 4)
+        self.dump_group_capacity = self.dump_batch * self.chunk
 
     def grow_bins(self, min_bins: int) -> None:
         """Grow the k* bin count to a power of two >= min_bins."""
@@ -223,10 +238,26 @@ class KstarEngine:
 
     # ---- device step ----
 
+    def _lookup_kvals(self, codes, seg=None):
+        """The gather route: codes uint8 [B, C + k - 1] -> flat
+        window-order (readK, asmK, prob, valid, overflow, raw read value,
+        seg) from two positional probes of the gather tables."""
+        fmer, rmer, valid = kmer_windows(codes, self.k)
+        canon, mult = canonical_and_mult(fmer.reshape(-1), rmer.reshape(-1))
+        read_v = self.read_lookup.lookup(canon) * mult
+        asm_v = self.asm_lookup.lookup(canon) * mult
+        read_k, prob, overflow = vm_ops.lookup(self.value_map, read_v,
+                                               self._vm)
+        valid = valid.reshape(-1)
+        zero = torch.zeros((), dtype=torch.float64, device=valid.device)
+        read_k = torch.where(valid, read_k, zero)
+        asm_k = torch.where(valid, asm_v.to(torch.float64), zero)
+        seg = seg.reshape(-1) if seg is not None else None
+        return read_k, asm_k, prob, valid, overflow, read_v, seg
+
     def _lookup_kvals_sorted(self, codes, seg=None):
-        """codes uint8 [B, C + k - 1] -> sorted-order (readK, asmK, prob,
-        valid, overflow, raw read value, seg, order); ``order`` is the
-        sort's permutation (sorted slot -> flat window index)."""
+        """The union route: codes uint8 [B, C + k - 1] -> sorted-order
+        (readK, asmK, prob, valid, overflow, raw read value, seg)."""
         fmer, rmer, valid = kmer_windows(codes, self.k)
         canon = torch.where(valid, umin(fmer, rmer),
                             torch.full_like(fmer, U64_MAX))
@@ -246,7 +277,7 @@ class KstarEngine:
         zero = torch.zeros((), dtype=torch.float64, device=qs.device)
         read_k = torch.where(valid_s, read_k, zero)
         asm_k = torch.where(valid_s, asm_v.to(torch.float64), zero)
-        return read_k, asm_k, prob, valid_s, overflow, read_v, seg_s, order
+        return read_k, asm_k, prob, valid_s, overflow, read_v, seg_s
 
     def _hist_chunk(self, codes, seg=None):
         """One -hist step (processHistogram, merfin-histogram.C:36-92):
@@ -254,8 +285,10 @@ class KstarEngine:
         windows binned by trunc((asmK/readK - 1 + 0.1)/0.2) and feeding
         the QV* excess, everything else binned in over[].  With ``seg``
         (the packed-group path) kasm/kmissing come back per slot."""
+        kvals = self._lookup_kvals_sorted if self.sortjoin \
+            else self._lookup_kvals
         (read_k, asm_k, prob, valid, overflow, read_v,
-         seg_s, _) = self._lookup_kvals_sorted(codes, seg)
+         seg_s) = kvals(codes, seg)
         missing = valid & (read_k == 0)
         is_undr = valid & (read_k > 0) & (asm_k > read_k)
         is_over = valid & (read_k > 0) & ~is_undr
@@ -287,12 +320,12 @@ class KstarEngine:
         return self.value_map.fits_u32(self.k)
 
     def _dump_chunk(self, codes, seg=None):
-        """One -dump step (processDump, merfin-dump.C:21-68): readK and
-        asmK back in window order (the scatter ``out[order] = x`` undoes
-        the join's sort), with kasm/kmissing, per slot given ``seg``.  K*
-        is computed on the host from the fetched values."""
-        (read_k, asm_k, _, valid, overflow, _, seg_s,
-         order) = self._lookup_kvals_sorted(codes, seg)
+        """One -dump step (processDump, merfin-dump.C:21-68) on the
+        gather route: readK and asmK in window order, with
+        kasm/kmissing, per slot given ``seg``.  K* is computed on the
+        host from the fetched values."""
+        (read_k, asm_k, _, valid, overflow, _,
+         seg_s) = self._lookup_kvals(codes, seg)
         missing = valid & (read_k == 0)
         if seg_s is None:
             kasm, kmissing = valid.sum(), missing.sum()
@@ -301,12 +334,7 @@ class KstarEngine:
         if self._fetch32():   # integers < 2^32: u32 bit patterns in int32
             read_k = read_k.to(torch.int64).to(torch.int32)
             asm_k = asm_k.to(torch.int64).to(torch.int32)
-        pos = []              # flat, in window order
-        for x in (read_k, asm_k):
-            out = torch.empty_like(x)
-            out[order] = x
-            pos.append(out)
-        return pos[0], pos[1], kasm, kmissing, overflow
+        return read_k, asm_k, kasm, kmissing, overflow
 
     def _fetch_f64(self, x: torch.Tensor) -> np.ndarray:
         """A positional readK/asmK fetch as host f64 (exact)."""
@@ -368,7 +396,8 @@ class KstarEngine:
         its windows.  Same packing contract as hist_group, at
         ``dump_group_capacity``."""
         planes, vbits, marks, base, starts = pack_group_transfer(
-            seqs, self.k, self.chunk, DUMP_BATCH, self.dump_group_capacity)
+            seqs, self.k, self.chunk, self.dump_batch,
+            self.dump_group_capacity)
         planes, vbits, marks, base = self._to_device(planes, vbits, marks,
                                                      base)
         rk, ak, kasm_seg, kmis_seg, overflow = self._dump_chunk(

@@ -15,8 +15,7 @@ bf16 MXU products exact.
 ``UnionTable.lookup2_sorted`` dispatches on the query's device: a CUDA
 tensor launches the hand-written kernel (``csrc/union_join.cu``) or
 raises; a CPU tensor runs the plain PyTorch version.  There is no
-fallback from one to the other.  ``lookup2_np`` and ``host_lookups``
-serve host code (the variant modes' host scorer) through the same probe.
+fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -233,48 +232,3 @@ class UnionTable:
             return union_join_kernel(self.keys, self.read_vals,
                                      self.asm_vals, self.index, q)
         return self.lookup2_plain(q)
-
-    def lookup2_np(self, q: np.ndarray):
-        """(read, asm) as host u64 arrays for a numpy u64 query array in
-        any order, from ONE probe: unsorted queries are sorted for the
-        join and its results scattered back."""
-        q = np.asarray(q, np.uint64)
-        shape = q.shape
-        flat = np.ascontiguousarray(q.reshape(-1))
-        order = None
-        if flat.size > 1 and bool((flat[1:] < flat[:-1]).any()):
-            order = np.argsort(flat, kind="stable")
-            flat = flat[order]
-        r, a = self.lookup2_sorted(
-            torch.from_numpy(flat.view(np.int64)).to(self.device))
-        out = []
-        for x in (r, a):
-            x = x.cpu().numpy().view(np.uint32).astype(np.uint64)
-            if order is not None:
-                y = np.empty_like(x)
-                y[order] = x
-                x = y
-            out.append(x.reshape(shape))
-        return out[0], out[1]
-
-
-def host_lookups(table: UnionTable):
-    """(lookup_read, lookup_asm), numpy u64 -> u64 callables for the
-    host scorer (``merfin_tpu_torch/variants/score.py``), which calls
-    lookup_read(q) and then lookup_asm(q) on the same array: the second
-    call takes the asm column of the first call's probe."""
-    last: dict = {}
-
-    def lookup_read(q):
-        r, a = table.lookup2_np(q)
-        last["q"], last["asm"] = q, a
-        return r
-
-    def lookup_asm(q):
-        if last.get("q") is q:
-            a = last["asm"]
-            last.clear()
-            return a
-        return table.lookup2_np(q)[1]
-
-    return lookup_read, lookup_asm

@@ -1,2 +1,3 @@
 """Stand-alone tools of the torch port: ``genomescope.py`` (the -prob
-lookup-table generator)."""
+lookup-table generator) and ``scatter_polish.py`` (the variant modes
+sharded by scaffold stripe, then gathered)."""

@@ -1,14 +1,19 @@
 """Fused variant-path scoring on the device (port of
-``merfin_tpu/variants/device_score.py``, union sorted-join path).
+``merfin_tpu/variants/device_score.py``).
 
 One device program per span of the packed candidate-path stream:
-unpack the 2-bit transfer planes, k-mer windows, canonical mer (invalid
-windows, the k-1 separators between paths included, become u64::MAX
-sentinels), ONE sort, the union sorted join (one probe gives the read
-and the asm value), a scatter back to window order, the even-k
-palindrome multiplier, getK and the K*/delta math (``_stream_math``) and
-the per-path reduction to (num_m, totdk) (``_boundary_reduce``).  Only
-those two numbers per path come back; the selectors stay on the host.
+unpack the 2-bit transfer planes, k-mer windows, canonical mer, the two
+DB values in window order, the even-k palindrome multiplier, getK and
+the K*/delta math (``_stream_math``) and the per-path reduction to
+(num_m, totdk) (``_boundary_reduce``).  Only those two numbers per path
+come back; the selectors stay on the host.
+
+The DB values come from one of two probes, as in the JAX scorer
+(``sortjoin``; auto: the union join on a card, the gather tables on the
+CPU): the union sorted join (invalid windows, the k-1 separators between
+paths included, become u64::MAX sentinels; ONE sort, one probe for both
+values, a scatter back to window order), or two positional probes of
+the gather tables (``table/lookup.py:DeviceLookup``), with no sort.
 
 Exactness: num_m is an exact integer prefix difference.  Without a
 -prob table (``ValueMap.int_scorer_ok``) the delta sums are int64 and
@@ -23,8 +28,6 @@ is added once, by the one fetch path (there is no fallback fetch).
 
 ``ShardedScorer`` is the same program over the sharded tables of a
 ``-mesh`` (``parallel/sharded.py:dual_probe_local``, positional).
-
-Not ported: the gather-table probe (``sortjoin=False``).
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ import torch
 
 from merfin_tpu_torch import convert
 from merfin_tpu_torch.kcore.pack import pack_transfer_np
-from merfin_tpu_torch.ops.kmer_ops import (U64_MAX, bias, kmer_windows, umin,
-                                          unpack_transfer)
+from merfin_tpu_torch.ops.kmer_ops import (U64_MAX, bias,
+                                          canonical_and_mult, kmer_windows,
+                                          umin, unpack_transfer)
 from merfin_tpu_torch.ops.union_join import UnionTable, u32_to_int64
 from merfin_tpu_torch.parallel.sharded import dual_probe_local
 from merfin_tpu_torch.score import value_map as vm_ops
@@ -173,23 +177,37 @@ def split_spans(starts: np.ndarray, P: int, max_windows: int):
 
 
 class DeviceScorer:
-    """Scores packed candidate-path streams on the device of ``table``.
+    """Scores packed candidate-path streams on the lookups' device.
 
     ``dispatch_paths`` packs every span (numpy, on two threads when
     there are several) and launches its program from the calling thread,
     in span order; ``fetch_paths`` brings back every span's (num_m,
     totdk, overflow) in ONE transfer.  Spans split at path boundaries at
-    ``MAX_WINDOWS`` windows; paths are independent, so per-span results
-    stitch exactly."""
+    ``MAX_WINDOWS`` windows (2^23 on the union join, 2^21 on the gather
+    tables, whose [windows, rows, window] temporaries grow with it);
+    paths are independent, so per-span results stitch exactly.
 
-    MAX_WINDOWS = 1 << 23
+    ``read_lookup``/``asm_lookup``: ``DeviceLookup``s; the union route
+    builds its union table from their host rows and never places them."""
 
-    def __init__(self, table: UnionTable, k: int, peak: float,
+    MAX_WINDOWS = 1 << 21
+
+    def __init__(self, read_lookup, asm_lookup, k: int, peak: float,
                  prob_table: ProbTable | None, max_value: int | None = None,
-                 exact_max: bool = False):
+                 exact_max: bool = False, sortjoin: bool | None = None):
         self.k = int(k)
-        self.table = table
-        self.device = table.device
+        self.read_lookup = read_lookup
+        self.asm_lookup = asm_lookup
+        self.device = read_lookup.device
+        if sortjoin is None:
+            sortjoin = self.device.type != "cpu"
+        self.sortjoin = bool(sortjoin)
+        self.table = None
+        if self.sortjoin:
+            self.MAX_WINDOWS = 1 << 23
+            self.table = UnionTable.from_dbs(
+                read_lookup.keys_np, read_lookup.vals_np,
+                asm_lookup.keys_np, asm_lookup.vals_np, self.device)
         self.value_map = ValueMap(peak, prob_table, max_value or (1 << 19),
                                   exact_max=exact_max)
         self.int_path = self.value_map.int_scorer_ok()
@@ -232,8 +250,12 @@ class DeviceScorer:
 
     def _probe(self, fmer, rmer, valid):
         """(read, asm) int64 values in window order, the even-k
-        palindrome multiplier applied: ONE sort, the union join, a
-        scatter back to window order."""
+        palindrome multiplier applied: two gather probes, or ONE sort,
+        the union join and a scatter back to window order."""
+        if not self.sortjoin:
+            canon, mult = canonical_and_mult(fmer, rmer)
+            return (self.read_lookup.lookup(canon) * mult,
+                    self.asm_lookup.lookup(canon) * mult)
         canon = torch.where(valid, umin(fmer, rmer),
                             torch.full_like(fmer, U64_MAX))
         keys_s, order = torch.sort(bias(canon))
@@ -318,6 +340,8 @@ class ShardedScorer(DeviceScorer):
     values): the query stream is the whole span, and the "d" axis adds
     table headroom, not variant throughput, as in the spans design where
     every process evaluates every cluster (``modes/variants.py``)."""
+
+    MAX_WINDOWS = 1 << 23
 
     def __init__(self, mesh, read_sharded, asm_sharded, k: int, peak: float,
                  prob_table: ProbTable | None, max_value: int | None = None,

@@ -6,10 +6,10 @@ CLI's, on the verify recipe's world.
   intersect, union-sum, subtract, divide-round; an unknown tool) through
   ``db_tool_main`` of both packages: stdout, the return code and the
   output files byte for byte.
-* -hist, -dump, -completeness and -polish without -seqmers, and -hist
-  -nosortjoin, through both CLIs in subprocesses: output and stderr byte
-  for byte (the JAX -hist with -sortjoin, which prints the sorted-join
-  line the port prints), and the two built ``asm.fasta.meryl`` equal.
+* -hist (with -sortjoin), -dump, -completeness and -polish without
+  -seqmers, and -hist -nosortjoin, through both CLIs in subprocesses
+  with the same flags: output and stderr byte for byte, and the two
+  built ``asm.fasta.meryl`` equal.
 """
 
 import functools
@@ -161,35 +161,35 @@ def _no_seqmers(argv):
     return argv[:at] + argv[at + 2:]
 
 
-# report type -> (port argv from materialize()'s -hist argv, extra JAX
-# flags, output file)
+# report type -> (both CLIs' argv from materialize()'s -hist argv,
+# output file)
 MODES = {
-    "hist": (lambda a: _no_seqmers(a) + ["-output", "out.hist"],
-             ["-sortjoin"], "out.hist"),
+    "hist": (lambda a: _no_seqmers(a) + ["-sortjoin", "-output", "out.hist"],
+             "out.hist"),
     "dump": (lambda a: _no_seqmers(cs.mode_argv(a, "dump"))
-             + ["-output", "out.dump"], [], "out.dump"),
+             + ["-output", "out.dump"], "out.dump"),
     "completeness": (lambda a: ["-completeness", "-sequence", a[2]]
                      + _no_seqmers(cs.mode_argv(a, "completeness")[1:]),
-                     [], None),
+                     None),
     "polish": (lambda a: _no_seqmers(cs.vcf_argv(a, "polish"))
-               + ["-threads", "1", "-output", "out"], [], "out.polish.vcf"),
+               + ["-threads", "1", "-output", "out"], "out.polish.vcf"),
     "hist_nosortjoin": (lambda a: a + ["-nosortjoin", "-output", "out.hist"],
-                        [], "out.hist"),
+                        "out.hist"),
 }
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_mode_without_seqmers_matches_jax(mode, world, tmp_path):
-    make, jax_extra, out = MODES[mode]
+    make, out = MODES[mode]
     argv = make(world["argv"])
     env = dict(os.environ, JAX_PLATFORMS="cpu", MERFIN_PLATFORM="cpu",
                MERFIN_TPU_CACHE=str(tmp_path / "jax_cache"),
+               TF_CPP_MIN_LOG_LEVEL="3",   # as tests/test_torch_hist.py:_env
                PYTHONPATH=REPO)
     procs = {}
-    for tag, pkg, extra in (("port", "merfin_tpu_torch", []),
-                            ("jax", "merfin_tpu", jax_extra)):
+    for tag, pkg in (("port", "merfin_tpu_torch"), ("jax", "merfin_tpu")):
         (tmp_path / tag).mkdir()
-        procs[tag] = _cli(pkg, argv + extra, tmp_path / tag, env)
+        procs[tag] = _cli(pkg, argv, tmp_path / tag, env)
     got = {}
     for tag, p in procs.items():
         _, err = p.communicate(timeout=600)

@@ -2,7 +2,9 @@
 
 Inputs are made from a seed with numpy; the JAX functions run on their
 CPU backend (the union table there is ``_JnpSortJoin2``, the JAX CPU
-stand-in of the Pallas union join).  Tolerances: integers (num_m, the
+stand-in of the Pallas union join).  The port's scorers probe the JAX
+gather tables carried across by ``convert.device_lookup_from_jax``, by
+the union join or by the gather probe.  Tolerances: integers (num_m, the
 integer path's totdk, masks, overflow counts) exactly; the f64 path's
 per-window deltas to 1e-12 and its totdk to 1e-9 relative.
 """
@@ -21,7 +23,7 @@ from merfin_tpu.variants import device_score as jds
 from merfin_tpu.variants.enumerate_fast import build_path_block_fast
 from merfin_tpu.variants.score import dispatch_blocks
 from merfin_tpu_torch import convert
-from merfin_tpu_torch.ops.union_join import UnionTable, host_lookups
+from merfin_tpu_torch.table.lookup import DeviceLookup
 from merfin_tpu_torch.variants import device_score as pds
 
 import chip_smoke as cs
@@ -84,14 +86,22 @@ def _world(k: int, seed: int, tmp_path):
     return rdb, adb, blocks
 
 
-def _scorers(k, rdb, adb, prob, **kw):
-    """JAX DeviceScorers (union join and gather) and the port's, on the
-    JAX union table converted."""
+def _scorers(k, rdb, adb, prob, sortjoin=True, **kw):
+    """JAX DeviceScorers (union join and gather) and the port's (the
+    union join, or the gather probe), on the JAX gather tables carried
+    across; the port's union table is the JAX scorer's."""
     rl, al = build_lookup(rdb), build_lookup(adb)
     j_sj = jds.DeviceScorer(rl, al, k, 30.0, prob, sortjoin=True, **kw)
     j_g = jds.DeviceScorer(rl, al, k, 30.0, prob, sortjoin=False, **kw)
-    table = UnionTable(*convert.union_from_device_scorer(j_sj), "cpu")
-    return j_sj, j_g, pds.DeviceScorer(table, k, 30.0, prob, **kw)
+    port = pds.DeviceScorer(convert.device_lookup_from_jax(rl, "cpu"),
+                            convert.device_lookup_from_jax(al, "cpu"), k,
+                            30.0, prob, sortjoin=sortjoin, **kw)
+    if sortjoin:
+        want = convert.union_from_device_scorer(j_sj)
+        got = (port.table.keys, port.table.read_vals, port.table.asm_vals)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w.view(g.numpy().dtype))
+    return j_sj, j_g, port
 
 
 def test_planes_from_bits_matches_jax():
@@ -227,9 +237,9 @@ def test_integer_totdk_fetched_exactly():
     """Divergence from the JAX scorer, which casts the int64 totdk to
     f64 before its fused fetch: the port fetches int64, so a sum past
     2^53 comes back exact."""
-    table = UnionTable(np.zeros(0, np.uint64), np.zeros(0, np.uint32),
-                       np.zeros(0, np.uint32), "cpu")
-    scorer = pds.DeviceScorer(table, 11, 30.0, None, max_value=100,
+    empty = DeviceLookup(np.zeros(0, np.uint64), np.zeros(0, np.uint32), 11,
+                         device="cpu")
+    scorer = pds.DeviceScorer(empty, empty, 11, 30.0, None, max_value=100,
                               exact_max=True)
     assert scorer.int_path
     big = (1 << 53) + 1
@@ -276,38 +286,47 @@ def test_overflow_counted_once_over_spans(tmp_path):
     assert j_sj.overflow_values == want
 
 
-def test_host_lookups_share_one_probe(monkeypatch):
-    """lookup_read then lookup_asm on the same array probe the union
-    table once; unsorted queries come back in their own order."""
-    rng = np.random.default_rng(8)
-    rk = np.unique(rng.integers(0, 1 << 30, size=3000, dtype=np.uint64))
-    rv = rng.integers(1, 1 << 31, size=rk.size).astype(np.uint32) * 2
-    ak = np.unique(np.concatenate([rk[::4], rng.integers(
-        0, 1 << 30, size=800, dtype=np.uint64)]))
-    av = rng.integers(1, 9, size=ak.size).astype(np.uint32)
-    table = UnionTable.from_dbs(rk, rv, ak, av, "cpu")
-    probes = []
-    real = table.lookup2_sorted
+@pytest.mark.parametrize("k", [11, 12])
+@pytest.mark.parametrize("with_prob", [False, True])
+def test_gather_scorer_matches_jax(k, with_prob, tmp_path):
+    """The port's gather probe (``sortjoin=False``, the CPU default) vs
+    the JAX gather scorer: the same spans (2^21 windows), num_m and the
+    overflow count exactly, totdk exactly on the integer path and to
+    1e-9 on the f64 path; no union table is built."""
+    rdb, adb, blocks = _world(k, 20 + k, tmp_path)
+    prob = PROB if with_prob else None
+    kw = dict(max_value=int(rdb.vals.max()), exact_max=True)
+    _, j_g, port = _scorers(k, rdb, adb, prob, sortjoin=False, **kw)
+    auto = pds.DeviceScorer(port.read_lookup, port.asm_lookup, k, 30.0, prob,
+                            **kw)
+    assert not auto.sortjoin and auto.table is None and port.table is None
+    assert port.MAX_WINDOWS == j_g.MAX_WINDOWS == 1 << 21
+    stream = dispatch_blocks(blocks, _Capture(), k)[1]
+    nm, td = port.score_paths(*stream)
+    jnm, jtd = j_g.score_paths(*stream)
+    np.testing.assert_array_equal(nm, jnm)
+    if with_prob:
+        np.testing.assert_allclose(td, jtd, **F64)
+    else:
+        np.testing.assert_array_equal(td, jtd)
+    assert port.overflow_values == j_g.overflow_values
+    assert (nm > 0).any() and (nm == 0).any()
 
-    def counted(q):
-        probes.append(q.shape[0])
-        assert bool((q[1:] >= q[:-1]).all())    # sorted (no bit-63 keys)
-        return real(q)
 
-    monkeypatch.setattr(table, "lookup2_sorted", counted)
-    lookup_read, lookup_asm = host_lookups(table)
-    q = np.concatenate([rk[rng.integers(0, rk.size, 500)],
-                        ak[rng.integers(0, ak.size, 500)],
-                        rng.integers(0, 1 << 30, size=300, dtype=np.uint64)])
-    rng.shuffle(q)
-    r = lookup_read(q)
-    a = lookup_asm(q)
-    assert probes == [q.size]
-    np.testing.assert_array_equal(r, HostLookup(rk, rv)(q))
-    np.testing.assert_array_equal(a, HostLookup(ak, av)(q))
-    assert r.dtype == a.dtype == np.uint64
-    lookup_asm(q.copy())                       # another array: own probe
-    assert probes == [q.size, q.size]
+def test_union_scorer_places_no_gather_table(tmp_path):
+    """The union route builds its table from the lookups' host rows: a
+    scored span leaves both gather tables unplaced; the gather route
+    places them at its first span."""
+    rdb, adb, blocks = _world(11, 9, tmp_path)
+    lk = [DeviceLookup(np.asarray(d.keys), np.asarray(d.vals), 11,
+                       device="cpu") for d in (rdb, adb)]
+    stream = dispatch_blocks(blocks, _Capture(), 11)[1]
+    union = pds.DeviceScorer(*lk, 11, 30.0, None, sortjoin=True)
+    union.score_paths(*stream)
+    assert union.table is not None and not any(x.placed for x in lk)
+    gather = pds.DeviceScorer(*lk, 11, 30.0, None)
+    gather.score_paths(*stream)
+    assert all(x.placed for x in lk)
 
 
 def test_value_map_scorer_tensors_follow_int_rule():

@@ -1,8 +1,7 @@
 """-dump: the merfin_tpu_torch CLI on the CPU vs the JAX CLI
 (bin/merfin-tpu) on the CPU, and vs tests/refmodel.py:dump_mode.
 
-The port takes positional values from the union sorted join and an
-unsort; the JAX CLI from its gather tables.  The rows file and stderr
+Both take positional values from their gather tables.  The rows file and stderr
 must be byte-identical (for a .gz output, its decompressed rows: gzip
 stamps each member with the time), and so must the exactness counters.
 Worlds as in tests/test_torch_hist.py: the recipe's, k=21 with a -prob
@@ -63,27 +62,40 @@ def test_dump_port_matches_jax_cli(name, variant, tmp_path):
 def test_dump_stream_path_matches_jax_engine(k, tmp_path):
     """Both packages' run_dump at a 4096-window chunk, so the long
     scaffold takes the chunk stream (2 steps in flight) and the short
-    ones pack into groups of the same capacity: rows and stderr equal."""
+    ones pack into groups of the same capacity, on the gather tables:
+    the port's are the JAX tables carried across by convert.py.  The A
+    homopolymer holds an N run and the reads count the poly-A mer (key
+    0) past the value map's cap, so the invalid windows the gather steps
+    probe (the Ns read as A) add to the overflow count.  Rows, stderr
+    and the count equal; no union table is built."""
     from merfin_tpu.io.fasta import SeqFile
     from merfin_tpu.io.mkdb import KmerDB
     from merfin_tpu.io.prob import load_prob_table
     from merfin_tpu.modes.dump import run_dump as jax_run_dump
     from merfin_tpu.modes.engine import KstarEngine as JaxEngine
     from merfin_tpu.table.lookup import build_lookup
+    from merfin_tpu_torch import convert
     from merfin_tpu_torch.modes.dump import run_dump
     from merfin_tpu_torch.modes.engine import KstarEngine
 
     world = cs.parity_world(6, 40_000, k=k, repeat=5_000)
+    name, asm = world["scaffolds"][0]
+    at = asm.index("A" * 5_000) + 2_000
+    world["scaffolds"][0] = (name, asm[:at] + "N" * 5 + asm[at + 5:])
+    world["read_counts"] = {"A" * k: 4_200_000}
     argv = cs.materialize(world, str(tmp_path))
     rdb, adb = KmerDB(argv[4]), KmerDB(argv[6])
     prob = load_prob_table(argv[argv.index("-prob") + 1], log=io.StringIO())
     kw = dict(prob_table=prob, chunk=4096, exact_max=True,
               max_value=int(rdb.vals.max()), asm_max_value=int(adb.vals.max()))
-    port = KstarEngine(build_lookup(rdb, host=True), build_lookup(adb, host=True),
-                       k, 2.0, device="cpu", **kw)
-    ref = JaxEngine(build_lookup(rdb), build_lookup(adb), k, 2.0, **kw)
-    assert port.dump_group_capacity == ref.dump_group_capacity
-    assert port._fetch32() == (k % 2 == 1)
+    jl = build_lookup(rdb), build_lookup(adb)
+    port = KstarEngine(*(convert.device_lookup_from_jax(x, "cpu") for x in jl),
+                       k, 2.0, **kw)
+    ref = JaxEngine(*jl, k, 2.0, **kw)
+    assert not port.sortjoin and port.table is None
+    assert (port.batch, port.dump_group_capacity) == (
+        ref.batch, ref.dump_group_capacity)
+    assert not port._fetch32()
     out = {}
     for tag, eng, fn in (("port", port, run_dump), ("jax", ref, jax_run_dump)):
         log = io.StringIO()
@@ -91,6 +103,7 @@ def test_dump_stream_path_matches_jax_engine(k, tmp_path):
         out[tag] = ((tmp_path / f"{tag}.dump").read_bytes(), log.getvalue(),
                     eng.overflow_values)
     assert out["port"] == out["jax"]
+    assert out["port"][2] > 5_000        # the poly-A windows, N ones too
     assert out["port"][0] == cs.oracle_dump(world)
 
 
@@ -99,7 +112,7 @@ def test_dump_resume_continues_exactly(tmp_path):
     file as an uninterrupted run, each sequence's line logged once."""
     from merfin_tpu.io.fasta import SeqFile
     from merfin_tpu.io.mkdb import KmerDB
-    from merfin_tpu.table.lookup import build_lookup
+    from merfin_tpu_torch.table.lookup import build_lookup
     from merfin_tpu_torch.modes.dump import run_dump
     from merfin_tpu_torch.modes.engine import KstarEngine
 
@@ -109,9 +122,9 @@ def test_dump_resume_continues_exactly(tmp_path):
 
     def engine():
         return KstarEngine(
-            build_lookup(KmerDB(argv[4]), host=True),
-            build_lookup(KmerDB(argv[6]), host=True), 21, 2.0,
-            chunk=4096, batch=2, device="cpu")
+            build_lookup(KmerDB(argv[4]), device="cpu"),
+            build_lookup(KmerDB(argv[6]), device="cpu"), 21, 2.0,
+            chunk=4096, batch=2)
 
     def dump_lines(log):
         return [ln for ln in log.getvalue().splitlines()
@@ -150,14 +163,14 @@ def test_dump_group_and_stream_paths_agree(tmp_path):
 
     from merfin_tpu.io.mkdb import KmerDB
     from merfin_tpu.kcore.pack import encode_bases
-    from merfin_tpu.table.lookup import build_lookup
+    from merfin_tpu_torch.table.lookup import build_lookup
     from merfin_tpu_torch.modes.engine import KstarEngine
 
     world = cs.parity_world(5, 20_000, k=20)
     argv = cs.materialize(world, str(tmp_path))
-    eng = KstarEngine(build_lookup(KmerDB(argv[4]), host=True),
-                      build_lookup(KmerDB(argv[6]), host=True), 20, 2.0,
-                      chunk=1024, batch=2, device="cpu")
+    eng = KstarEngine(build_lookup(KmerDB(argv[4]), device="cpu"),
+                      build_lookup(KmerDB(argv[6]), device="cpu"), 20, 2.0,
+                      chunk=1024, batch=2)
     seqs, used = [], 0
     for _, s in world["scaffolds"][1:]:
         if used + len(s) + 19 <= eng.dump_group_capacity:

@@ -3,7 +3,8 @@
 stream designs) vs its plain version on random tables, on the windowed
 joins' edge cases and on window tables whose keys repeat, -hist,
 -completeness, -dump and the variant modes on CUDA vs on the CPU, the
-fused variant scorer on CUDA vs on the CPU, the counter's device
+fused variant scorer on CUDA (union join and gather probe) vs on the
+CPU, the gather tables on CUDA vs HostLookup, the counter's device
 accumulator and device step vs the numpy counter, the sharded tables'
 probes (one sorted_join launch a shard, never the plain version), and
 -mesh 1x1 on the card vs -mesh 2x4 on 8 logical CPU devices.
@@ -121,16 +122,23 @@ def test_modes_cuda_match_cpu(cuda, mode, tmp_path, monkeypatch):
 def test_hist_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     """The repeat world (fallback bins, kover fallback, bin growth,
     packed groups, even k) gives the same hist file, stderr and
-    counters on CUDA as on the CPU."""
+    counters on CUDA as on the CPU, on each route: the CUDA default (the
+    union join) against the CPU with -sortjoin, CUDA with -nosortjoin
+    against the CPU default (the gather tables)."""
     import chip_smoke as cs
 
     world = cs.parity_world(3, 60_000, k=20, repeat=40_000)
     argv = cs.materialize(world, str(tmp_path))
     monkeypatch.setenv("MERFIN_PLATFORM", "cuda")
-    got = cs.run_port_inprocess(argv, str(tmp_path / "cuda"))
-    want = cs.run_port_subprocess(argv, str(tmp_path), "cpu")
-    assert got == want
-    assert got[2]["bin_fallbacks"] > 0
+    for cuda_flags, cpu_flags in (([], ["-sortjoin"]), (["-nosortjoin"], [])):
+        tag = "".join(cuda_flags)
+        got = cs.run_port_inprocess(argv + cuda_flags,
+                                    str(tmp_path / f"cuda{tag}"))
+        want = cs.run_port_subprocess(argv + cpu_flags,
+                                      cs._mkdir(str(tmp_path / f"cpu{tag}")),
+                                      "cpu")
+        assert got == want, cuda_flags
+        assert got[2]["bin_fallbacks"] > 0
 
 
 @pytest.mark.gpu
@@ -156,7 +164,8 @@ def test_device_scorer_cuda_matches_cpu(cuda, with_prob, tmp_path):
     from merfin_tpu_torch.io.prob import load_prob_table
     from merfin_tpu_torch.variants.enumerate_fast import build_path_block_fast
     from merfin_tpu_torch.variants.score import dispatch_blocks
-    from merfin_tpu_torch.ops.union_join import UnionTable, union_join_kernel
+    from merfin_tpu_torch.ops.union_join import union_join_kernel
+    from merfin_tpu_torch.table.lookup import DeviceLookup
     from merfin_tpu_torch.variants.device_score import DeviceScorer
 
     world = cs.parity_world(5, 60_000, k=21)
@@ -182,24 +191,54 @@ def test_device_scorer_cuda_matches_cpu(cuda, with_prob, tmp_path):
 
     stream = dispatch_blocks(blocks, Capture(), 21)[1]
     out, launched = {}, {}
-    for dev in ("cpu", "cuda"):
-        table = UnionTable.from_dbs(rdb.keys, rdb.vals, adb.keys, adb.vals,
-                                    dev)
-        sc = DeviceScorer(table, 21, 2.0, prob, max_value=int(rdb.vals.max()),
-                          exact_max=True)
+    for dev, sortjoin in (("cpu", True), ("cuda", True), ("cuda", False)):
+        lk = [DeviceLookup(db.keys, db.vals, 21, device=dev)
+              for db in (rdb, adb)]
+        sc = DeviceScorer(*lk, 21, 2.0, prob, max_value=int(rdb.vals.max()),
+                          exact_max=True, sortjoin=sortjoin)
         sc.MAX_WINDOWS = 1 << 16
         before = union_join_kernel.launches
-        out[dev] = sc.score_paths(*stream)
+        out[dev, sortjoin] = sc.score_paths(*stream)
         torch.cuda.synchronize()
-        launched[dev] = union_join_kernel.launches - before
-    assert launched["cpu"] == 0 and launched["cuda"] > 1, launched
-    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
-    if with_prob:
-        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-9,
-                                   atol=0)
-    else:
-        assert out["cuda"][1].dtype == np.int64
-        np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+        launched[dev, sortjoin] = union_join_kernel.launches - before
+        assert any(x.placed for x in lk) == (not sortjoin)
+    assert launched == {("cpu", True): 0, ("cuda", False): 0,
+                        ("cuda", True): launched["cuda", True]}
+    assert launched["cuda", True] > 1, launched
+    for key in (("cuda", True), ("cuda", False)):
+        np.testing.assert_array_equal(out[key][0], out["cpu", True][0])
+        if with_prob:
+            np.testing.assert_allclose(out[key][1], out["cpu", True][1],
+                                       rtol=1e-9, atol=0)
+        else:
+            assert out[key][1].dtype == np.int64
+            np.testing.assert_array_equal(out[key][1], out["cpu", True][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["block", "slice", "bsearch"])
+@pytest.mark.parametrize("k", [21, 32])
+def test_gather_table_on_card(cuda, k, strategy):
+    """DeviceLookup on CUDA (plain torch ops on the card) vs HostLookup:
+    k=32 keys with bit 63, the poly-A key 0, n = 0 and 1, misses."""
+    from merfin_tpu_torch.table.lookup import DeviceLookup, HostLookup
+
+    rng = np.random.default_rng(k)
+    hi = np.iinfo(np.uint64).max if k == 32 else 1 << (2 * k)
+    for n in (0, 1, 1 << 16):
+        keys = np.unique(np.concatenate([
+            np.zeros(min(n, 1), np.uint64),
+            rng.integers(0, hi, size=n, dtype=np.uint64)]))[:max(n, 0)]
+        vals = rng.integers(0, 1 << 32, size=keys.size,
+                            dtype=np.uint64).astype(np.uint32)
+        q = np.concatenate([keys, rng.integers(0, hi, size=5000,
+                                               dtype=np.uint64)])
+        lk = DeviceLookup(keys, vals, k, device=cuda, strategy=strategy)
+        assert not lk.placed
+        got = lk.lookup(torch.from_numpy(q.view(np.int64)).to(cuda))
+        assert got.is_cuda and lk.tree()[0].is_cuda
+        np.testing.assert_array_equal(got.cpu().numpy().astype(np.uint64),
+                                      HostLookup(keys, vals)(q))
 
 
 @pytest.mark.gpu

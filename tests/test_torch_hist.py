@@ -1,16 +1,21 @@
 """The -hist slice end to end: the merfin_tpu_torch CLI on the CPU vs the
-JAX CLI (bin/merfin-tpu) on the CPU, in its auto (gather) mode and with
--sortjoin.
+JAX CLI (bin/merfin-tpu) on the CPU, each with no route flag (the gather
+tables on the CPU), with -sortjoin (the union join) and with -nosortjoin
+(the gather tables).
 
 Worlds: the verify recipe's, and chip_parity-style ~100 kb worlds (a
 -prob table, odd k=21 and even k=20, short scaffolds for the packed-group
-path, a repeat that forces bin growth and the bin/kover fallbacks).  The
-hist file must be byte-identical; stderr too, except the one line naming
-the lookup path, which the JAX CLI prints only with -sortjoin; and the
-exactness counters must be equal.
+path, a repeat that forces bin growth and the bin/kover fallbacks), and
+one whose A homopolymer holds an N run while the read DB counts the
+poly-A mer (key 0) past the value map's cap: the gather route probes the
+invalid windows' canonical mers (the Ns read as A) before masking them,
+so its overflow count differs from the union route's.  For each flag the
+hist file, stderr and the exactness counters must be byte-identical to
+the JAX CLI's with the same flag.
 """
 
 import io
+import json
 import os
 import subprocess
 
@@ -23,28 +28,47 @@ import chip_smoke as cs
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SJ_LINE = "-- Using sorted-join lookup kernel for -hist.\n"
 
+
+def nrun_world() -> dict:
+    """parity_world with an N run inside its A homopolymer, and the
+    poly-A mer counted 4,200,000 times in the reads (past 2^21, so the
+    value map's cap of 2^22 leaves the overflow fallback live)."""
+    world = cs.parity_world(3, 60_000, k=21, repeat=5_000)
+    name, asm = world["scaffolds"][0]
+    at = asm.index("A" * 5_000) + 2_500
+    world["scaffolds"][0] = (name, asm[:at] + "N" * 7 + asm[at + 7:])
+    world["read_counts"] = {"A" * 21: 4_200_000}
+    return world
+
+
 WORLDS = {
     "recipe": cs.recipe_world,
     "k21": lambda: cs.parity_world(1, 100_000, k=21, repeat=40_000),
     "k20": lambda: cs.parity_world(2, 100_000, k=20, repeat=40_000),
 }
+HIST_WORLDS = dict(WORLDS, nrun=nrun_world)
+FLAGS = {"auto": [], "sortjoin": ["-sortjoin"], "nosortjoin": ["-nosortjoin"]}
 
 
 def _env(tmp_path):
+    # TF_CPP_MIN_LOG_LEVEL=3: XLA's own C++ diagnostics (the slow-compile
+    # alarm, timed on the wall clock of a loaded machine) stay out of the
+    # JAX CLI's stderr, which is compared byte for byte
     return dict(os.environ, JAX_PLATFORMS="cpu", MERFIN_PLATFORM="cpu",
-                MERFIN_TPU_CACHE=str(tmp_path / "jax_cache"))
+                MERFIN_TPU_CACHE=str(tmp_path / "jax_cache"),
+                TF_CPP_MIN_LOG_LEVEL="3")
 
 
-@pytest.mark.parametrize("name", WORLDS)
+@pytest.mark.parametrize("name", HIST_WORLDS)
 def test_hist_port_matches_jax_cli(name, tmp_path):
-    world = WORLDS[name]()
+    world = HIST_WORLDS[name]()
     argv = cs.materialize(world, str(tmp_path))
-    runs = {"port": cs.counted_cli("merfin_tpu_torch") + argv,
-            "jax_auto": cs.counted_cli("merfin_tpu") + argv,
-            "jax_sortjoin": cs.counted_cli("merfin_tpu") + argv + ["-sortjoin"]}
+    runs = {(pkg, flag): cs.counted_cli(pkg) + argv + extra
+            for pkg in ("merfin_tpu_torch", "merfin_tpu")
+            for flag, extra in FLAGS.items()}
     procs = {}
     for tag, cmd in runs.items():
-        cwd = tmp_path / tag
+        cwd = tmp_path / "_".join(tag)
         cwd.mkdir()
         procs[tag] = subprocess.Popen(
             cmd + ["-output", "out.hist"], cwd=cwd, env=_env(tmp_path),
@@ -53,16 +77,25 @@ def test_hist_port_matches_jax_cli(name, tmp_path):
     for tag, p in procs.items():
         stdout, stderr = p.communicate(timeout=600)
         assert p.returncode == 0, (tag, stderr[-3000:])
-        out[tag] = ((tmp_path / tag / "out.hist").read_bytes(), stderr,
-                    stdout.splitlines()[-1])
+        out[tag] = ((tmp_path / "_".join(tag) / "out.hist").read_bytes(),
+                    stderr, stdout.splitlines()[-1])
 
-    hist, err, counters = out["port"]
-    assert hist == out["jax_sortjoin"][0] == out["jax_auto"][0]
-    assert err == out["jax_sortjoin"][1]
+    for flag in FLAGS:
+        assert out["merfin_tpu_torch", flag] == out["merfin_tpu", flag], flag
+    hist, err, counters = out["merfin_tpu_torch", "sortjoin"]
     assert err.count(SJ_LINE) == 1
-    assert err.replace(SJ_LINE, "") == out["jax_auto"][1]
-    assert counters == out["jax_sortjoin"][2] == out["jax_auto"][2]
-    if name != "recipe":   # the repeat really exercised growth + fallbacks
+    # no flag takes the gather route on the CPU, as -nosortjoin does
+    assert out["merfin_tpu_torch", "auto"] == \
+        out["merfin_tpu_torch", "nosortjoin"]
+    g_hist, g_err, g_counters = out["merfin_tpu_torch", "nosortjoin"]
+    assert g_hist == hist and g_err == err.replace(SJ_LINE, "")
+    if name == "nrun":     # the gather route counted the N windows too
+        over = [json.loads(c)["overflow_values"] for c in (counters,
+                                                           g_counters)]
+        assert 0 < over[0] < over[1], over
+    else:
+        assert g_counters == counters
+    if name not in ("recipe", "nrun"):   # growth + fallbacks exercised
         assert "Growing k* histogram" in err
         assert '"bin_fallbacks": 0' not in counters
         assert '"kover_fallbacks": 0' not in counters
@@ -73,7 +106,7 @@ def test_resume_continues_exactly(tmp_path):
     file and summary as an uninterrupted one."""
     from merfin_tpu.io.fasta import SeqFile
     from merfin_tpu.io.mkdb import KmerDB
-    from merfin_tpu.table.lookup import build_lookup
+    from merfin_tpu_torch.table.lookup import build_lookup
     from merfin_tpu_torch.modes.engine import KstarEngine
     from merfin_tpu_torch.modes.hist import run_hist
 
@@ -83,9 +116,9 @@ def test_resume_continues_exactly(tmp_path):
 
     def engine():
         return KstarEngine(
-            build_lookup(KmerDB(argv[4]), host=True),
-            build_lookup(KmerDB(argv[6]), host=True), 21, 2.0,
-            chunk=4096, batch=2, device="cpu")
+            build_lookup(KmerDB(argv[4]), device="cpu"),
+            build_lookup(KmerDB(argv[6]), device="cpu"), 21, 2.0,
+            chunk=4096, batch=2)
 
     full_log = io.StringIO()
     run_hist(engine(), SeqFile(fasta), str(tmp_path / "full.hist"),
@@ -167,14 +200,14 @@ def test_group_and_stream_paths_agree(tmp_path):
     (the engine's two device paths)."""
     from merfin_tpu.io.mkdb import KmerDB
     from merfin_tpu.kcore.pack import encode_bases
-    from merfin_tpu.table.lookup import build_lookup
+    from merfin_tpu_torch.table.lookup import build_lookup
     from merfin_tpu_torch.modes.engine import KstarEngine
 
     world = cs.parity_world(5, 20_000, k=20)
     argv = cs.materialize(world, str(tmp_path))
-    eng = KstarEngine(build_lookup(KmerDB(argv[4]), host=True),
-                      build_lookup(KmerDB(argv[6]), host=True), 20, 2.0,
-                      chunk=8192, batch=2, device="cpu")
+    eng = KstarEngine(build_lookup(KmerDB(argv[4]), device="cpu"),
+                      build_lookup(KmerDB(argv[6]), device="cpu"), 20, 2.0,
+                      chunk=8192, batch=2)
     seqs = [encode_bases(s) for _, s in world["scaffolds"][1:8]]
     stats, undr, over, _ = eng.hist_group(seqs)
     u_sum = np.zeros_like(undr)

@@ -2,9 +2,11 @@
 imports every module of merfin_tpu_torch (and chip_smoke), runs a CPU
 -hist, -completeness, -dump, -polish (fused scorer and host scorer) and
 -filter through the CLI, the same on a 1x2 mesh (``parallel/``), a part
-file merge (``utils/partmerge.py``), then `count`, `statistics` and a
--hist without -seqmers (which counts its sequence DB), and finds neither
-'jax' nor 'merfin_tpu' in sys.modules."""
+file merge (``utils/partmerge.py``), then `count`, `statistics`, a
+-hist without -seqmers (which counts its sequence DB), -hist with
+-sortjoin and with -nosortjoin, and ``tools/scatter_polish.py`` (run on
+two stripes, then gather), and finds neither 'jax' nor 'merfin_tpu' in
+sys.modules."""
 
 import os
 import pathlib
@@ -46,6 +48,16 @@ assert main(["count", "k=15", argv[1], "output=asm_count.mkdb"]) == 0
 assert main(["statistics", "asm_count.mkdb"]) == 0
 at = argv.index("-seqmers")
 assert main(["-hist"] + argv[:at] + argv[at + 2:] + ["-output", "noseq.hist"]) == 0
+# -hist on each route, and the scatter-gather tool over 2 stripes
+for flag in ("-sortjoin", "-nosortjoin"):
+    assert main(["-hist"] + argv + [flag, "-output", flag[1:] + ".hist"]) == 0
+from merfin_tpu_torch.tools import scatter_polish as sp
+sg = ["--shards", "2", "--output", "sg"]
+for shard in ("0", "1"):
+    assert sp.main(["run", "--shard", shard, "--sequence", argv[1],
+                    "--vcf", sys.argv[1], "--readmers", argv[3],
+                    "--seqmers", argv[5], "--peak", argv[7]] + sg) == 0
+assert sp.main(["gather"] + sg) == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not bad, bad
 pkg = sorted(m for m in sys.modules
@@ -79,8 +91,10 @@ def test_port_runs_without_jax(tmp_path):
         want = (tmp_path / "asm.mkdb" / name).read_bytes()
         assert (tmp_path / "asm_count.mkdb" / name).read_bytes() == want
         assert (tmp_path / "asm.fasta.meryl" / name).read_bytes() == want
-    assert (tmp_path / "noseq.hist").read_bytes() == \
-        (tmp_path / "out.hist").read_bytes()
+    for name in ("noseq.hist", "sortjoin.hist", "nosortjoin.hist"):
+        assert (tmp_path / name).read_bytes() == \
+            (tmp_path / "out.hist").read_bytes()
+    assert (tmp_path / "sg.polish.vcf").read_bytes() == pol[0]
     for a, b in (("out.hist", "mout.hist"), ("out.dump", "mout.dump"),
                  ("fused.polish.vcf", "mfused.polish.vcf"),
                  ("host.polish.vcf", "mhost.polish.vcf"),

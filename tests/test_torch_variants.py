@@ -192,8 +192,12 @@ WORLDS = {
 
 
 def _env(tmp_path):
+    # TF_CPP_MIN_LOG_LEVEL=3: XLA's own C++ diagnostics (the slow-compile
+    # alarm, timed on the wall clock of a loaded machine) stay out of the
+    # JAX CLI's stderr, which is compared byte for byte
     return dict(os.environ, JAX_PLATFORMS="cpu", MERFIN_PLATFORM="cpu",
-                MERFIN_TPU_CACHE=str(tmp_path / "jax_cache"))
+                MERFIN_TPU_CACHE=str(tmp_path / "jax_cache"),
+                TF_CPP_MIN_LOG_LEVEL="3")
 
 
 @pytest.mark.parametrize("name", WORLDS)
@@ -254,9 +258,8 @@ def test_variants_resume_continues_exactly(scorer, tmp_path):
     from merfin_tpu.io.mkdb import KmerDB
     from merfin_tpu.io.prob import load_prob_table
     from merfin_tpu.io.vcf import VcfFile
-    from merfin_tpu.table.lookup import build_lookup
     from merfin_tpu_torch.modes.variants import run_variants
-    from merfin_tpu_torch.ops.union_join import UnionTable, host_lookups
+    from merfin_tpu_torch.table.lookup import build_lookup
     from merfin_tpu_torch.variants.device_score import DeviceScorer
 
     world = cs.parity_world(4, 30_000, k=21)
@@ -264,14 +267,13 @@ def test_variants_resume_continues_exactly(scorer, tmp_path):
     fasta, vcf_path = argv[2], str(tmp_path / "calls.vcf")
     rdb, adb = KmerDB(argv[4]), KmerDB(argv[6])
     prob = load_prob_table(argv[argv.index("-prob") + 1], log=io.StringIO())
-    rl, al = build_lookup(rdb, host=True), build_lookup(adb, host=True)
-    table = UnionTable.from_dbs(rl.keys, rl.vals, al.keys, al.vals, "cpu")
-    lookups = host_lookups(table)
+    rl, al = build_lookup(rdb, device="cpu"), build_lookup(adb, device="cpu")
+    lookups = rl.lookup_np, al.lookup_np
 
     def run(out, seqs, resume):
         vcf = VcfFile(vcf_path, log=io.StringIO())
         vcf.merge_clusters(21, 15, False, log=io.StringIO())
-        sc = DeviceScorer(table, 21, 2.0, prob, max_value=int(rdb.vals.max()),
+        sc = DeviceScorer(rl, al, 21, 2.0, prob, max_value=int(rdb.vals.max()),
                           exact_max=True) if scorer == "fused" else None
         log = io.StringIO()
         run_variants("filter", seqs, vcf, 21, *lookups, 2.0, prob,
@@ -297,3 +299,91 @@ def test_variants_resume_continues_exactly(scorer, tmp_path):
     assert cs.vcf_records(full) > 0
     assert log.count("Processing sequence") < full_log.count(
         "Processing sequence")
+
+
+@pytest.mark.parametrize("flags", [
+    ["-polish"], ["-polish", "-nodevscore"], ["-polish", "-debug"],
+    ["-filter", "-nodevscore"]])
+def test_host_scorer_builds_no_union_table(flags, tmp_path, monkeypatch):
+    """The host scorer (-polish with a -prob table, -nodevscore, -debug)
+    probes the gather tables' lookup_np, as the JAX CLI does, and builds
+    no union table; its VCF equals the JAX CLI's (stderr is held in
+    test_variant_modes_port_match_jax_cli)."""
+    from merfin_tpu_torch import cli
+    from merfin_tpu_torch.ops import union_join
+
+    def refuse(*a, **kw):
+        raise AssertionError("a union table was built")
+
+    world = cs.parity_world(8, 20_000, k=21)
+    argv = cs.vcf_argv(cs.materialize(world, str(tmp_path)), flags[0][1:])
+    argv += flags[1:] + ["-threads", "1", "-output", "out"]
+    port = tmp_path / "port"
+    port.mkdir()
+    with monkeypatch.context() as m:
+        m.setenv("MERFIN_PLATFORM", "cpu")
+        m.setattr(union_join.UnionTable, "__init__", refuse)
+        m.chdir(port)
+        err = io.StringIO()
+        m.setattr(sys, "stderr", err)
+        assert cli.main(argv) == 0
+    assert "-- Using fused device scoring" not in err.getvalue()
+    jax = str(tmp_path / "jax")
+    rc, _, outs = wait_batch(batch_subprocess(
+        "merfin_tpu", [("run", argv)], jax, _env(tmp_path)), jax)["run"]
+    vcf = cs.variant_vcf(argv)
+    assert rc == 0 and (port / vcf).read_bytes() == outs[vcf]
+    assert cs.vcf_records(outs[vcf]) > 0
+
+
+def test_scatter_polish_tool_matches_one_run(tmp_path, monkeypatch):
+    """tools/scatter_polish.py: `run` over 2 shards (each scaffold stripe
+    with its VCF records, through the port's CLI) then `gather` gives the
+    records of one -polish run, and the same file, byte for byte, as
+    scripts/scatter_polish.py run on the JAX CLI."""
+    from merfin_tpu_torch.cli import main
+    from merfin_tpu_torch.tools import scatter_polish as sp
+
+    world = cs.parity_world(9, 30_000, k=21)
+    argv = cs.materialize(world, str(tmp_path / "world"))
+    opts = ["--mode", "polish", "--shards", "2"]
+    run = opts + ["--sequence", argv[2], "--vcf",
+                  str(tmp_path / "world" / "calls.vcf"), "--readmers",
+                  argv[4], "--seqmers", argv[6], "--peak", argv[8],
+                  "--prob", argv[argv.index("-prob") + 1]]
+    env = _env(tmp_path)
+    for tag in ("port", "jax", "one"):
+        (tmp_path / tag).mkdir()
+    jax = tmp_path / "jax"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(cs.REPO, "scripts", "scatter_polish.py"),
+         "run"] + run + ["--shard", str(i), "--output", str(jax / "sg")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for i in range(2)]
+    one = tmp_path / "one" / "out"
+    monkeypatch.setenv("MERFIN_PLATFORM", "cpu")
+    assert main(cs.vcf_argv(argv, "polish") + ["-threads", "1",
+                                                "-output", str(one)]) == 0
+    for i in range(2):
+        assert sp.main(["run"] + run + ["--shard", str(i), "--output",
+                                        str(tmp_path / "port" / "sg")]) == 0
+    assert sp.main(["gather"] + opts + ["--output",
+                                        str(tmp_path / "port" / "sg")]) == 0
+    for p in procs:
+        assert p.wait(timeout=600) == 0, p.stderr.read()[-3000:]
+    subprocess.run([sys.executable, os.path.join(
+        cs.REPO, "scripts", "scatter_polish.py"), "gather"] + opts
+        + ["--output", str(jax / "sg")], env=env, check=True,
+        capture_output=True)
+    got = (tmp_path / "port" / "sg.polish.vcf").read_bytes()
+    assert got == (jax / "sg.polish.vcf").read_bytes()
+    want = (tmp_path / "one" / "out.polish.vcf").read_bytes()
+
+    def split(vcf: bytes):
+        lines = vcf.decode().splitlines(keepends=True)
+        return ([ln for ln in lines if ln.startswith("#")],
+                sorted(ln for ln in lines if not ln.startswith("#")))
+
+    assert split(got) == split(want) and cs.vcf_records(want) > 0
+    for i in range(2):      # both stripes ran (chrL's records are shard 0's)
+        assert (tmp_path / "port" / f"sg.shard{i}.polish.vcf").exists()
