@@ -54,6 +54,7 @@ def main(argv: list[str] | None = None) -> int:
 
 def merfin_main(argv: list[str]) -> int:
     cfg = MerfinConfig()
+    trace = None                         # -trace FILE: not a reference flag
     errs: list[str] = []
 
     i = 0
@@ -94,6 +95,8 @@ def merfin_main(argv: list[str]) -> int:
                 setattr(cfg, attr, conv(nextarg()))
             elif a in switches:
                 setattr(cfg, *switches[a])
+            elif a == "-trace":
+                trace = nextarg()
             elif a in mode_flags:
                 if a == "-loose":
                     print("*EXPERIMENTAL* Running in -loose mode",
@@ -129,7 +132,32 @@ def merfin_main(argv: list[str]) -> int:
             sys.stderr.write(e)
         return 1
 
-    return run(cfg)
+    return run(cfg) if trace is None else _run_traced(cfg, trace)
+
+
+def _run_traced(cfg: MerfinConfig, trace: str) -> int:
+    """run() with the program's spans recorded (utils/spans.py), written
+    at the end to ``trace`` as Chrome trace-event JSON with each
+    kernel's launches; each rank of a multi-process launch writes
+    ``trace``.rank<N>."""
+    from merfin_tpu_torch.utils import spans
+
+    spans.clear()
+    spans.enable()
+    try:
+        return run(cfg)
+    finally:
+        spans.disable()
+        from merfin_tpu_torch.ops._build import Kernel
+        from merfin_tpu_torch.parallel import multihost as mh
+
+        launches: dict[str, int] = {}
+        for kern in Kernel.instances:
+            launches[kern.name] = launches.get(kern.name, 0) + kern.launches
+        path = trace
+        if mh.is_active():
+            path += f".rank{mh.process_info()[0]}"
+        spans.write_chrome(path, {"kernel launches": launches})
 
 
 def _usage() -> None:
@@ -198,6 +226,8 @@ def _usage() -> None:
         "  union-sum subtract divide-round export.\n"
         "\n"
         "  -mesh DxT        shard the lookup tables over a DxT device mesh (all report types)\n"
+        "  -trace FILE      write the run's host spans and kernel launches to FILE as\n"
+        "                   Chrome trace-event JSON (opens in Perfetto; FILE.rank<N> a rank)\n"
         "  Multi-host: set MERFIN_NUM_PROCESSES, MERFIN_PROCESS_ID and MERFIN_COORDINATOR\n"
         "  (host:port) on every process; sequences/DB slices stripe across processes and\n"
         "  rank 0 writes the merged outputs.\n"

@@ -27,6 +27,7 @@ import numpy as np
 
 from merfin_tpu_torch.io.compressed import open_read
 from merfin_tpu_torch.kcore.pack import encode_bases
+from merfin_tpu_torch.utils.spans import span
 
 DEFAULT_WINDOW = 1 << 26   # 64 MB windows through the parser
 PAD_CODE = 4
@@ -285,30 +286,41 @@ def _cat(parts: list[np.ndarray]) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def _joined(name: str, parts: list[np.ndarray]) -> Sequence:
+    with span("fasta.parse"):
+        return Sequence(name, _cat(parts).tobytes())
+
+
 def _iter_bytes(path: str, window: int = DEFAULT_WINDOW) -> Iterator[Sequence]:
     """Streaming whole-record reader keeping raw bytes (for region copy)
     — drives PyStreamParser in raw mode (ONE state machine, no third
-    parser to keep in sync)."""
+    parser to keep in sync).  The read, parse and join of each window
+    are the span "fasta.parse" (counts: the sequence bytes, and the
+    windows under the parser's kind), never the time it is suspended."""
     parser = PyStreamParser(raw=True)
     cur_name: str | None = None
     parts: list[np.ndarray] = []
     with open_read(path) as f:
         while True:
-            block = f.read(window)
-            try:
-                names, raw, offsets, flags = parser.feed(block, is_final=not block)
-            except ValueError:
-                raise ValueError(f"{path}: not FASTA or FASTQ")
+            with span("fasta.parse") as h:
+                block = f.read(window)
+                try:
+                    names, raw, offsets, flags = parser.feed(
+                        block, is_final=not block)
+                except ValueError:
+                    raise ValueError(f"{path}: not FASTA or FASTQ")
+                h.count("bytes", raw.shape[0])
+                h.count("python", 1)
             ni = 0
             for i in range(len(flags)):
                 if flags[i]:
                     if cur_name is not None:
-                        yield Sequence(cur_name, _cat(parts).tobytes())
+                        yield _joined(cur_name, parts)
                     cur_name = names[ni]
                     ni += 1
                     parts = []
                 parts.append(raw[offsets[i]: offsets[i + 1]])
             if not block:
                 if cur_name is not None:
-                    yield Sequence(cur_name, _cat(parts).tobytes())
+                    yield _joined(cur_name, parts)
                 return

@@ -26,6 +26,8 @@ import dataclasses
 import re
 import sys
 
+from merfin_tpu_torch.utils.spans import span
+
 
 def _strtol(s: str) -> int:
     """C strtol: parse optional sign + leading digits, 0 if none."""
@@ -135,6 +137,11 @@ class VcfFile:
         self._load(path, log)
 
     def _load(self, path: str, log) -> None:
+        with span("vcf.load") as h:
+            self._read(path, log)
+            h.count("records", len(self.records))
+
+    def _read(self, path: str, log) -> None:
         from merfin_tpu_torch.io.compressed import open_read_text
 
         excluded = 0
@@ -163,6 +170,11 @@ class VcfFile:
 
     def merge_clusters(self, ksize: int, comb: int, nosplit: bool, log=sys.stderr) -> None:
         """mergeChrPosGT (vcf.C:154-246)."""
+        with span("vcf.merge") as h:
+            self._merge(ksize, comb, nosplit, log)
+            h.count("clusters", sum(len(c) for c in self.by_chrom.values()))
+
+    def _merge(self, ksize: int, comb: int, nosplit: bool, log) -> None:
         k_offset = 2 * ksize
 
         for chrom, inlist in self.by_chrom.items():

@@ -29,6 +29,7 @@ from merfin_tpu_torch.io.mkdb import SLICES, KmerDB
 from merfin_tpu_torch.score.kstar import ProbTable
 from merfin_tpu_torch.score.value_map import ValueMap
 from merfin_tpu_torch.utils.prefetch import prefetch_iter
+from merfin_tpu_torch.utils.spans import span
 from merfin_tpu_torch.device import get_device
 from merfin_tpu_torch.ops.kmer_ops import bias
 from merfin_tpu_torch.ops.union_join import u32_to_int64
@@ -99,81 +100,99 @@ def run_completeness(read_db: KmerDB, asm_db: KmerDB, peak: float,
     reference's 64-way OpenMP merge-join, merfin-completeness.C:65).
     Under a multi-process launch each rank streams its slice stripe and
     rank 0 reports the merged sums."""
-    max_v = int(np.asarray(read_db.vals).max()) if read_db.distinct else 1
-    # max_v is the scanned TRUE maximum, and completeness feeds raw DB
-    # values (never palindrome-doubled), so the map needs no fallback
-    vmap = ValueMap(peak, prob_table, max_v, exact_max=True)
+    with span("completeness.run") as run_span:
+        with span("completeness.value_map"):
+            max_v = int(np.asarray(read_db.vals).max()) \
+                if read_db.distinct else 1
+            # max_v is the scanned TRUE maximum, and completeness feeds
+            # raw DB values (never palindrome-doubled), so the map needs
+            # no fallback
+            vmap = ValueMap(peak, prob_table, max_v, exact_max=True)
 
-    if mesh is not None:
-        return _run_completeness_mesh(read_db, asm_db, vmap, mesh, log=log,
-                                      block=block)
+        if mesh is not None:
+            return _run_completeness_mesh(read_db, asm_db, vmap, mesh, log=log,
+                                          block=block)
 
-    multi = mh.is_active()
-    pid, pcount = mh.process_info() if multi else (0, 1)
+        multi = mh.is_active()
+        pid, pcount = mh.process_info() if multi else (0, 1)
 
-    if asm_table is None:
-        device = get_device() if device is None else torch.device(device)
-        asm_table = build_asm_table(asm_db, read_db.k, block, device)
-    device = asm_table.device
-    bounds_b = bias(torch.from_numpy(
-        _slice_bounds(read_db.k).view(np.int64)).to(device))
+        if asm_table is None:
+            device = get_device() if device is None else torch.device(device)
+            asm_table = build_asm_table(asm_db, read_db.k, block, device)
+        device = asm_table.device
+        bounds_b = bias(torch.from_numpy(
+            _slice_bounds(read_db.k).view(np.int64)).to(device))
 
-    # readK on the HOST: one numpy gather per block from the exact map.
-    # It is integer-valued and < 2^32 whenever peak > 0, so the device
-    # sums are exact int64; otherwise (e.g. peak 0) it stays f64.
-    rk_host = vmap.read_k_host
-    int_ok = bool(np.isfinite(rk_host).all()) and float(rk_host.max()) < 2**32
-    rk_map = rk_host.astype(np.int64) if int_ok else rk_host
-    cap = np.uint32(min(vmap.vcap, 2**32 - 1))
+        # readK on the HOST: one numpy gather per block from the exact map.
+        # It is integer-valued and < 2^32 whenever peak > 0, so the device
+        # sums are exact int64; otherwise (e.g. peak 0) it stays f64.
+        with span("completeness.value_map"):
+            rk_host = vmap.read_k_host
+            int_ok = bool(np.isfinite(rk_host).all()) \
+                and float(rk_host.max()) < 2**32
+            rk_map = rk_host.astype(np.int64) if int_ok else rk_host
+            cap = np.uint32(min(vmap.vcap, 2**32 - 1))
 
-    # contiguous row ranges to stream: the whole DB, or under a
-    # multi-process launch the rank's slice stripe (the reference's
-    # OpenMP dynamic schedule over 64 slices)
-    offs = read_db.slice_offsets
-    owned = [ii for ii in range(SLICES) if ii % pcount == pid]
-    ranges = []
-    for ii in owned:
-        a, b = int(offs[ii]), int(offs[ii + 1])
-        if ranges and ranges[-1][1] == a:
-            ranges[-1][1] = b
-        else:
-            ranges.append([a, b])
+        # contiguous row ranges to stream: the whole DB, or under a
+        # multi-process launch the rank's slice stripe (the reference's
+        # OpenMP dynamic schedule over 64 slices)
+        offs = read_db.slice_offsets
+        owned = [ii for ii in range(SLICES) if ii % pcount == pid]
+        ranges = []
+        for ii in owned:
+            a, b = int(offs[ii]), int(offs[ii + 1])
+            if ranges and ranges[-1][1] == a:
+                ranges[-1][1] = b
+            else:
+                ranges.append([a, b])
+        run_span.count("keys", sum(b - a for a, b in ranges))
+        cuda = device.type == "cuda"
 
-    def blocks():
-        """Read rows -> device (keys int64, readK) blocks; runs on the
-        prefetch thread, so the copy of block i+1 overlaps block i."""
-        for a, b in ranges:
-            for lo in range(a, b, block):
-                hi = min(lo + block, b)
-                # a copy: torch takes no read-only (memmapped) array
-                kk = np.array(read_db.keys[lo: hi], np.uint64)
-                rv = np.asarray(read_db.vals[lo: hi])
-                qk = rk_map[np.minimum(rv, cap)]
-                yield (torch.from_numpy(kk.view(np.int64)).to(device),
-                       torch.from_numpy(qk).to(device))
+        def blocks():
+            """Read rows -> device (keys int64, readK) blocks; runs on the
+            prefetch thread, so the copy of block i+1 overlaps block i."""
+            for a, b in ranges:
+                for lo in range(a, b, block):
+                    hi = min(lo + block, b)
+                    with span("completeness.block_copy") as h:
+                        # a copy: torch takes no read-only (memmapped) array
+                        kk = np.array(read_db.keys[lo: hi], np.uint64)
+                        rv = np.asarray(read_db.vals[lo: hi])
+                        h.count("keys", hi - lo)
+                    with span("completeness.readk_gather"):
+                        qk = rk_map[np.minimum(rv, cap)]
+                    with span("completeness.block_upload") as h:
+                        out = (torch.from_numpy(kk.view(np.int64)).to(device),
+                               torch.from_numpy(qk).to(device))
+                        h.count("bytes", kk.nbytes + qk.nbytes if cuda else 0)
+                    yield out
 
-    compl_total = np.zeros(SLICES, dtype=np.float64)
-    compl_undrc = np.zeros(SLICES, dtype=np.float64)
+        compl_total = np.zeros(SLICES, dtype=np.float64)
+        compl_undrc = np.zeros(SLICES, dtype=np.float64)
 
-    def fetch(handle):
-        t, u = handle
-        compl_total[:] += t.cpu().numpy()
-        compl_undrc[:] += u.cpu().numpy()
+        def fetch(handle):
+            with span("completeness.fetch"):
+                t, u = handle
+                compl_total[:] += t.cpu().numpy()
+                compl_undrc[:] += u.cpu().numpy()
 
-    inflight: deque = deque()
-    for q_keys, q_readk in prefetch_iter(blocks(), depth=2):
-        inflight.append(block_stats(asm_table, bounds_b, q_keys, q_readk))
-        if len(inflight) > _MAX_INFLIGHT:
+        inflight: deque = deque()
+        for q_keys, q_readk in prefetch_iter(
+                blocks(), depth=2, wait="completeness.block_wait"):
+            with span("completeness.block_program"):
+                inflight.append(block_stats(asm_table, bounds_b, q_keys,
+                                            q_readk))
+            if len(inflight) > _MAX_INFLIGHT:
+                fetch(inflight.popleft())
+        while inflight:
             fetch(inflight.popleft())
-    while inflight:
-        fetch(inflight.popleft())
 
-    for ii in owned:
-        _slice_line(ii, compl_total, compl_undrc, log)
-    if multi:
-        compl_total = mh.merge_array_across_hosts(compl_total)
-        compl_undrc = mh.merge_array_across_hosts(compl_undrc)
-    return _report(compl_total, compl_undrc, log if pid == 0 else None)
+        for ii in owned:
+            _slice_line(ii, compl_total, compl_undrc, log)
+        if multi:
+            compl_total = mh.merge_array_across_hosts(compl_total)
+            compl_undrc = mh.merge_array_across_hosts(compl_undrc)
+        return _report(compl_total, compl_undrc, log if pid == 0 else None)
 
 
 def _slice_line(ii: int, compl_total, compl_undrc, log) -> None:

@@ -40,6 +40,7 @@ from merfin_tpu_torch.io.fasta import SeqFile, Sequence
 from merfin_tpu_torch.io.vcf import PosGT, VcfFile
 from merfin_tpu_torch.score.kstar import ProbTable
 from merfin_tpu_torch.utils.checkpoint import Checkpoint, truncate_to
+from merfin_tpu_torch.utils.spans import carry, span
 from merfin_tpu_torch.variants import select
 from merfin_tpu_torch.variants.enumerate import VarPath, enumerate_paths
 from merfin_tpu_torch.variants.score import (PathScore, dispatch_blocks,
@@ -142,7 +143,10 @@ def _enumerate_block_task(args):
     enum_args, k = args
     from merfin_tpu_torch.variants.enumerate_fast import build_path_block_fast
 
-    return build_path_block_fast(*enum_args, k)
+    with span("variants.enumerate") as h:
+        block = build_path_block_fast(*enum_args, k)
+        h.count("paths", block.nis.shape[0])
+    return block
 
 
 def _select_block_task(args):
@@ -239,22 +243,25 @@ def _score_fused(mode, prepared, task_args, heavy, get_pool, scorer, k,
         nonlocal nxt
         while nxt < len(prepared) and len(futs) < _LOOKAHEAD:
             futs.append(None if nxt in heavy_set else build_ex.submit(
-                _enumerate_block_task, task_args[nxt]))
+                carry(_enumerate_block_task), task_args[nxt]))
             nxt += 1
 
     def next_block():
         submit_more()
         f = futs.popleft()
-        b = next(heavy_iter) if f is None else f.result()
+        with span("variants.block_wait"):
+            b = next(heavy_iter) if f is None else f.result()
         submit_more()
         return b
 
     def finish(a, b, tok):
         scores[a:b] = fetch_blocks(tok, scorer)
-        for idx in range(a, b):
-            if prepared[idx] is not None:
-                selected[idx] = _select_block_task(
-                    (mode, blocks[idx], scores[idx], prepared[idx][0], k))
+        with span("variants.select") as h:
+            for idx in range(a, b):
+                if prepared[idx] is not None:
+                    selected[idx] = _select_block_task(
+                        (mode, blocks[idx], scores[idx], prepared[idx][0], k))
+            h.count("clusters", b - a)
 
     pending: collections.deque = collections.deque()
     try:
@@ -267,7 +274,9 @@ def _score_fused(mode, prepared, task_args, heavy, get_pool, scorer, k,
                 if blocks[j] is not None:
                     budget += int(blocks[j].nis.sum())
                 j += 1
-            pending.append((i, j, dispatch_blocks(blocks[i:j], scorer, k)))
+            with span("variants.dispatch"):
+                tok = dispatch_blocks(blocks[i:j], scorer, k)
+            pending.append((i, j, tok))
             if len(pending) > _MAX_INFLIGHT:
                 finish(*pending.popleft())
             i = j
@@ -326,187 +335,198 @@ def run_variants(mode: str, seq_file: SeqFile, vcf: VcfFile, k: int,
     heavy clusters on a spawned process pool; output order never
     depends on it.  ``spans``: the lookups ride a mesh over several
     processes.  Returns {"records": n}."""
-    # the parent only: the spawned workers never import torch
-    from merfin_tpu_torch.parallel import multihost as mh
-    from merfin_tpu_torch.utils.partmerge import (PartWriter,
-                                                  can_resume_part,
-                                                  merge_parts)
+    with span("variants.run") as run_span:
+        # the parent only: the spawned workers never import torch
+        from merfin_tpu_torch.parallel import multihost as mh
+        from merfin_tpu_torch.utils.partmerge import (PartWriter,
+                                                      can_resume_part,
+                                                      merge_parts)
 
-    assert mode in MODES
-    if debug and scorer is not None:
-        raise ValueError("-debug needs per-window K* stats; "
-                         "it cannot run with the device scorer (-devscore)")
-    if not threads:
-        threads = os.cpu_count() or 1
+        assert mode in MODES
+        if debug and scorer is not None:
+            raise ValueError("-debug needs per-window K* stats; it cannot "
+                             "run with the device scorer (-devscore)")
+        if not threads:
+            threads = os.cpu_count() or 1
 
-    pool = None
+        pool = None
 
-    def get_pool():
-        """The worker pool, spawned at the first heavy cluster.  spawn,
-        not fork: the parent holds CUDA state (and the process group),
-        and the workers run only the numpy/native enumeration."""
-        nonlocal pool
-        if pool is None:
-            import multiprocessing as mp
+        def get_pool():
+            """The worker pool, spawned at the first heavy cluster.  spawn,
+            not fork: the parent holds CUDA state (and the process group),
+            and the workers run only the numpy/native enumeration."""
+            nonlocal pool
+            if pool is None:
+                import multiprocessing as mp
 
-            pool = mp.get_context("spawn").Pool(threads)
-        return pool
+                with span("variants.pool_spawn"):
+                    pool = mp.get_context("spawn").Pool(threads)
+            return pool
 
-    out_path = f"{out_name}.{'polish' if mode == 'polish' else 'filter'}.vcf"
-    out = None
+        out_path = \
+            f"{out_name}.{'polish' if mode == 'polish' else 'filter'}.vcf"
+        out = None
 
-    # Multi-process, two shapes:
-    #  * striped: sequence stripes -> per-process part files (no
-    #    headers) -> ordered merge with the headers by rank 0;
-    #  * ``spans`` (host-spanning mesh lookups): the sharded table needs
-    #    every process in each probe, so all ranks evaluate every
-    #    cluster and only rank 0 writes.
-    multi = mh.is_active()
-    part = None
-    pid, pcount = mh.process_info() if multi else (0, 1)
-    striped = multi and not spans
+        # Multi-process, two shapes:
+        #  * striped: sequence stripes -> per-process part files (no
+        #    headers) -> ordered merge with the headers by rank 0;
+        #  * ``spans`` (host-spanning mesh lookups): the sharded table needs
+        #    every process in each probe, so all ranks evaluate every
+        #    cluster and only rank 0 writes.
+        multi = mh.is_active()
+        part = None
+        pid, pcount = mh.process_info() if multi else (0, 1)
+        striped = multi and not spans
 
-    # Debug writers follow the reference's per-thread split (one gz per
-    # writer unit): per rank for striped runs; in spans mode every rank
-    # evaluates identically, so only rank 0 writes.
-    dbg = DebugWriter(out_name, pid if striped else 0) \
-        if debug and (not multi or striped or pid == 0) else None
+        # Debug writers follow the reference's per-thread split (one gz per
+        # writer unit): per rank for striped runs; in spans mode every rank
+        # evaluates identically, so only rank 0 writes.
+        dbg = DebugWriter(out_name, pid if striped else 0) \
+            if debug and (not multi or striped or pid == 0) else None
 
-    # checkpoint/resume at the sequence boundary (not with -debug: the
-    # debug gz stream is not offset-restartable).  Striped ranks keep
-    # per-rank checkpoints and resumable part files (no collective runs
-    # inside the striped loop); spans ranks share rank 0's checkpoint,
-    # which only rank 0 writes.
-    ckpt = Checkpoint(f"{out_name}.rank{pid}" if striped else out_name,
-                      f"variants-{mode}", enabled=resume and not debug,
-                      writer=striped or (not multi) or pid == 0)
-    skip = 0
-    part_resume = None
-    n_selected = 0
-    if resume and not debug and (st := ckpt.load()) is not None:
-        skip = st["seqs_done"]
-        n_selected = st["accum"].get("records", 0)
+        # checkpoint/resume at the sequence boundary (not with -debug: the
+        # debug gz stream is not offset-restartable).  Striped ranks keep
+        # per-rank checkpoints and resumable part files (no collective runs
+        # inside the striped loop); spans ranks share rank 0's checkpoint,
+        # which only rank 0 writes.
+        ckpt = Checkpoint(f"{out_name}.rank{pid}" if striped else out_name,
+                          f"variants-{mode}", enabled=resume and not debug,
+                          writer=striped or (not multi) or pid == 0)
+        skip = 0
+        part_resume = None
+        n_selected = 0
+        if resume and not debug and (st := ckpt.load()) is not None:
+            skip = st["seqs_done"]
+            n_selected = st["accum"].get("records", 0)
+            if striped:
+                part_resume = (st["accum"].get("n_extents", 0),
+                               st["output_offset"])
+                if not can_resume_part(out_path, pid, *part_resume):
+                    # torn part/idx state on disk: restart this rank's stripe
+                    # rather than dropping the checkpointed rows
+                    print("-- Part file state unusable; restarting this "
+                          "rank's stripe fresh.", file=log)
+                    skip = 0
+                    part_resume = None
+                    n_selected = 0
+            elif not multi or pid == 0:
+                truncate_to(out_path, st["output_offset"])
+            if skip:
+                print(f"-- Resuming after {skip} sequences.", file=log)
         if striped:
-            part_resume = (st["accum"].get("n_extents", 0),
-                           st["output_offset"])
-            if not can_resume_part(out_path, pid, *part_resume):
-                # torn part/idx state on disk: restart this rank's stripe
-                # rather than dropping the checkpointed rows
-                print("-- Part file state unusable; restarting this "
-                      "rank's stripe fresh.", file=log)
-                skip = 0
-                part_resume = None
-                n_selected = 0
-        elif not multi or pid == 0:
-            truncate_to(out_path, st["output_offset"])
-        if skip:
-            print(f"-- Resuming after {skip} sequences.", file=log)
-    if striped:
-        part = PartWriter(out_path, pid, resume_state=part_resume)
+            part = PartWriter(out_path, pid, resume_state=part_resume)
 
-    # the fused path's array-native enumeration is ~6x faster than the
-    # scalar one, so its pool pays off only from 3 workers
-    min_workers = 3 if scorer is not None else 2
-    ok = False
-    try:
-        for seq_idx, seq in enumerate(seq_file, 1):
-            if seq_idx <= skip:
-                continue
-            if striped and (seq_idx - 1) % pcount != pid:
-                continue
-            # the reference opens the output (headers included) at the
-            # first sequence, variants or not (merfin-variants.C:313-341)
-            if out is None and (not multi or (spans and pid == 0)):
-                out = open(out_path, "ab" if skip else "wb")
-                if not skip:
-                    out.write("".join(h + "\n"
-                                      for h in vcf.headers).encode())
-            clusters = vcf.by_chrom.get(seq.ident)
-            if clusters is None:
-                if out is not None:
-                    ckpt.save(seq_idx, out.tell(), {"records": n_selected})
-                continue
-            print(f"Processing sequence {seq.ident} for variants", file=log)
-
-            prepared = []
-            for pos_gt in clusters:
-                r = prepare_cluster_args(seq, pos_gt, k, comb, log=log)
-                prepared.append(None if r is None
-                                else (pos_gt, r[0], r[1], r[2]))
-            enum_args = [p[3] if p is not None else None for p in prepared]
-            # only combinatorially heavy clusters go to the pool: for
-            # small ones the pickle round trip costs more than the work
-            heavy = [i for i, a in enumerate(enum_args)
-                     if a is not None
-                     and _est_paths(a[3]) >= _POOL_MIN_PATHS] \
-                if threads >= min_workers else []
-
-            if scorer is not None:
-                task_args = [(a, k) if a is not None else None
-                             for a in enum_args]
-                paths_list, all_scores, selected = _score_fused(
-                    mode, prepared, task_args, heavy, get_pool, scorer, k,
-                    query_budget)
-            else:
-                paths_list, all_scores, selected = _score_host(
-                    mode, prepared, enum_args, heavy, get_pool, k,
-                    lookup_read, lookup_asm, peak, prob_table, threads,
-                    query_budget)
-
-            parts: list[str] = []
-            si = 0
-            for idx, entry in enumerate(prepared):
-                if entry is None:
+        # the fused path's array-native enumeration is ~6x faster than the
+        # scalar one, so its pool pays off only from 3 workers
+        min_workers = 3 if scorer is not None else 2
+        ok = False
+        try:
+            for seq_idx, seq in enumerate(seq_file, 1):
+                if seq_idx <= skip:
                     continue
-                pos_gt, r_start, r_end, _ = entry
-                if dbg is not None:
-                    dbg.emit(seq.ident, r_start, r_end, pos_gt,
-                             paths_list[idx], all_scores[idx])
-                res, warn = selected[si]
-                si += 1
-                if warn:
-                    log.write(warn)
-                parts.append(res)
-            text = "".join(parts)
-            n_selected += text.count("\n")
+                if striped and (seq_idx - 1) % pcount != pid:
+                    continue
+                # the reference opens the output (headers included) at the
+                # first sequence, variants or not (merfin-variants.C:313-341)
+                if out is None and (not multi or (spans and pid == 0)):
+                    out = open(out_path, "ab" if skip else "wb")
+                    if not skip:
+                        out.write("".join(h + "\n"
+                                          for h in vcf.headers).encode())
+                clusters = vcf.by_chrom.get(seq.ident)
+                if clusters is None:
+                    if out is not None:
+                        ckpt.save(seq_idx, out.tell(),
+                                  {"records": n_selected})
+                    continue
+                print(f"Processing sequence {seq.ident} for variants",
+                      file=log)
+
+                prepared = []
+                with span("variants.prepare") as h:
+                    for pos_gt in clusters:
+                        r = prepare_cluster_args(seq, pos_gt, k, comb, log=log)
+                        prepared.append(None if r is None
+                                        else (pos_gt, r[0], r[1], r[2]))
+                    h.count("clusters", len(clusters))
+                run_span.count("clusters", len(clusters))
+                enum_args = [p[3] if p is not None else None for p in prepared]
+                # only combinatorially heavy clusters go to the pool: for
+                # small ones the pickle round trip costs more than the work
+                heavy = [i for i, a in enumerate(enum_args)
+                         if a is not None
+                         and _est_paths(a[3]) >= _POOL_MIN_PATHS] \
+                    if threads >= min_workers else []
+
+                if scorer is not None:
+                    task_args = [(a, k) if a is not None else None
+                                 for a in enum_args]
+                    paths_list, all_scores, selected = _score_fused(
+                        mode, prepared, task_args, heavy, get_pool, scorer, k,
+                        query_budget)
+                else:
+                    paths_list, all_scores, selected = _score_host(
+                        mode, prepared, enum_args, heavy, get_pool, k,
+                        lookup_read, lookup_asm, peak, prob_table, threads,
+                        query_budget)
+
+                parts: list[str] = []
+                si = 0
+                for idx, entry in enumerate(prepared):
+                    if entry is None:
+                        continue
+                    pos_gt, r_start, r_end, _ = entry
+                    if dbg is not None:
+                        dbg.emit(seq.ident, r_start, r_end, pos_gt,
+                                 paths_list[idx], all_scores[idx])
+                    res, warn = selected[si]
+                    si += 1
+                    if warn:
+                        log.write(warn)
+                    parts.append(res)
+                text = "".join(parts)
+                n_selected += text.count("\n")
+                with span("variants.write") as h:
+                    data = text.encode()
+                    h.count("bytes", len(data))
+                    if part is not None:
+                        part.write_seq(seq_idx, data)
+                        if ckpt.enabled:
+                            part.flush_idx()
+                            ckpt.save(seq_idx, part.offset,
+                                      {"n_extents": len(part.extents),
+                                       "records": n_selected})
+                    elif out is not None:
+                        out.write(data)
+                        out.flush()
+                        ckpt.save(seq_idx, out.tell(), {"records": n_selected})
+            ok = True
+        finally:
+            if pool is not None:
+                if ok:
+                    pool.close()
+                else:
+                    pool.terminate()
+                pool.join()
+            if out is not None:
+                out.close()
             if part is not None:
-                part.write_seq(seq_idx, text.encode())
-                if ckpt.enabled:
-                    part.flush_idx()
-                    ckpt.save(seq_idx, part.offset,
-                              {"n_extents": len(part.extents),
-                               "records": n_selected})
-            elif out is not None:
-                out.write(text.encode())
-                out.flush()
-                ckpt.save(seq_idx, out.tell(), {"records": n_selected})
-        ok = True
-    finally:
-        if pool is not None:
-            if ok:
-                pool.close()
-            else:
-                pool.terminate()
-            pool.join()
-        if out is not None:
-            out.close()
-        if part is not None:
-            part.close()
-    if multi and spans:
-        mh.barrier("variants-spans-done")   # ranks computed identically
-    elif multi:
-        n_selected = int(mh.merge_scalar_across_hosts(n_selected))
-        mh.barrier("variants-parts")
-        # drop per-rank checkpoints BEFORE the merge consumes the parts: a
-        # crash inside the merge re-runs from scratch instead of resuming
-        # against missing part files
+                part.close()
+        if multi and spans:
+            mh.barrier("variants-spans-done")   # ranks computed identically
+        elif multi:
+            n_selected = int(mh.merge_scalar_across_hosts(n_selected))
+            mh.barrier("variants-parts")
+            # drop per-rank checkpoints BEFORE the merge consumes the parts: a
+            # crash inside the merge re-runs from scratch instead of resuming
+            # against missing part files
+            ckpt.done()
+            mh.barrier("variants-ckpt-clear")
+            if pid == 0:
+                header = "".join(h + "\n" for h in vcf.headers).encode()
+                merge_parts(out_path, pcount, header=header)
+            mh.barrier("variants-merged")
+        if dbg is not None:
+            dbg.close()
         ckpt.done()
-        mh.barrier("variants-ckpt-clear")
-        if pid == 0:
-            header = "".join(h + "\n" for h in vcf.headers).encode()
-            merge_parts(out_path, pcount, header=header)
-        mh.barrier("variants-merged")
-    if dbg is not None:
-        dbg.close()
-    ckpt.done()
-    return {"records": n_selected}
+        return {"records": n_selected}

@@ -100,14 +100,17 @@ class Kernel:
     a CUDA error code) run once before the first launch and a ``configs``
     entry that fills one int64 for each of ``config_keys`` with the
     library's built constants; ``launches`` counts the launches this
-    wrapper made."""
+    wrapper made.  ``instances`` lists every wrapper made (the -trace
+    file reports their launches)."""
 
     name = lib = symbol = source = replaces = ""
     init = configs = ""
     config_keys: tuple = ()
     argtypes: list = []
+    instances: list = []
 
     def __init__(self):
+        Kernel.instances.append(self)
         self.launches = 0
         self._fn = None
         self._config = None

@@ -12,13 +12,18 @@ import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
 
+from merfin_tpu_torch.utils.spans import carry, span
+
 T = TypeVar("T")
 
 _SENTINEL = object()
 
 
-def prefetch_iter(it: Iterable[T], depth: int = 2) -> Iterator[T]:
-    """Iterate `it` on a background thread, `depth` items ahead."""
+def prefetch_iter(it: Iterable[T], depth: int = 2,
+                  wait: str = "prefetch.wait") -> Iterator[T]:
+    """Iterate `it` on a background thread, `depth` items ahead.  The
+    consumer's wait for each item is the span named `wait`; the
+    thread's spans take the consumer's open span as their parent."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     err: list[BaseException] = []
 
@@ -31,10 +36,11 @@ def prefetch_iter(it: Iterable[T], depth: int = 2) -> Iterator[T]:
         finally:
             q.put(_SENTINEL)
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=carry(worker), daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span(wait):
+            item = q.get()
         if item is _SENTINEL:
             if err:
                 raise err[0]

@@ -45,6 +45,7 @@ from merfin_tpu_torch.parallel.sharded import dual_probe_local
 from merfin_tpu_torch.score import value_map as vm_ops
 from merfin_tpu_torch.score.kstar import ProbTable
 from merfin_tpu_torch.score.value_map import ValueMap
+from merfin_tpu_torch.utils.spans import carry, span
 
 
 def _planes_from_bits(adj_bits, mark_bits, n: int, need_start: bool):
@@ -139,6 +140,11 @@ def _pack_inputs(codes: np.ndarray, adjust: np.ndarray,
     is): pad the stream to a power of two, 2-bit code planes + validity
     bits, 1-bit adjust/path-start-mark planes, and the padded [p_seg]
     path-boundary index arrays."""
+    with span("scorer.pack"):
+        return _pack(codes, adjust, starts, nis, k)
+
+
+def _pack(codes, adjust, starts, nis, k: int):
     n = max(0, codes.shape[0] - k + 1)
     p = max(4096, 1 << (n - 1).bit_length())
     codes_p = np.full(p + k - 1, 4, dtype=np.uint8)
@@ -282,27 +288,37 @@ class DeviceScorer:
                        starts: np.ndarray, nis: np.ndarray):
         """Launch every span's program; returns the token for
         fetch_paths: (P, [(i, j, (num_m, totdk, overflow))])."""
-        P = nis.shape[0]
-        n = max(0, codes.shape[0] - self.k + 1)
-        if n == 0 or P == 0:
-            return (P, [])
-        spans = split_spans(starts, P, self.MAX_WINDOWS)
-        args = [(codes[a:b], adjust[a:b], starts[i: j + 1] - a, nis[i:j],
-                 self.k) for i, j, a, b in spans]
-        if len(spans) > 1:
-            ex = self._packer()
-            packs = [ex.submit(_pack_inputs, *a) for a in args]
-            packed = (f.result() for f in packs)
-        else:
-            packed = (_pack_inputs(*a) for a in args)
-        return (P, [(i, j, self._launch(pk))
-                    for (i, j, _, _), pk in zip(spans, packed)])
+        with span("scorer.dispatch") as h:
+            P = nis.shape[0]
+            n = max(0, codes.shape[0] - self.k + 1)
+            if n == 0 or P == 0:
+                return (P, [])
+            h.count("windows", n)
+            spans = split_spans(starts, P, self.MAX_WINDOWS)
+            args = [(codes[a:b], adjust[a:b], starts[i: j + 1] - a,
+                     nis[i:j], self.k) for i, j, a, b in spans]
+            if len(spans) > 1:
+                ex = self._packer()
+                packs = [ex.submit(carry(_pack_inputs), *a) for a in args]
+                packed = (f.result() for f in packs)
+            else:
+                packed = (_pack_inputs(*a) for a in args)
+            cuda = self.device.type == "cuda"
+            out = []
+            for (i, j, _, _), pk in zip(spans, packed):
+                out.append((i, j, self._launch(pk)))
+                h.count("bytes", sum(x.nbytes for x in pk[2:]) if cuda
+                        else 0)
+            return (P, out)
 
     def fetch_paths(self, token):
         """Blocking half: (num_m int64 [P], totdk [P]); totdk is int64 on
         the integer path and f64 otherwise.  One device-to-host copy for
         all spans."""
-        P, handles = token
+        with span("scorer.fetch"):
+            return self._fetch(*token)
+
+    def _fetch(self, P: int, handles):
         num_m = np.zeros(P, np.int64)
         totdk = np.zeros(P, np.int64 if self.int_path else np.float64)
         if not handles:
