@@ -7,20 +7,26 @@ globally sorted on disk, stream in blocks of (key, readK) through the
 single-value sorted join against the device-resident assembly table;
 asm-only k-mers are skipped exactly as in the reference
 (merfin-completeness.C:100-109).  readK comes from the host-exact
-value map on the host.
+value map, uploaded once a call and gathered on the device from each
+block's raw 4-byte counts.
 
 One block is one device program: the join, ``und = readK - asmK`` where
 readK > asmK, and the split of both sums at the 64 slice boundaries
 (512-wide row sums, a row cumsum and a boundary-row correction, as the
 JAX package does it).  Blocks stream from host memory two ahead on the
-prefetch thread; results stay in flight in a bounded deque and are
-fetched once per block.  Output lines are the JAX package's.
+prefetch thread, which on a card copies each block's raw rows (u64
+keys, u32 counts: 12 B a key) into a reused pinned slot (``_PinnedRing``)
+for the main thread's asynchronous upload.  Results stay in flight in a
+bounded deque and are fetched once per block.  Output lines are the JAX
+package's.
 """
 
 from __future__ import annotations
 
+import queue
 import sys
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,6 +42,8 @@ from merfin_tpu_torch.ops.union_join import u32_to_int64
 from merfin_tpu_torch.parallel import multihost as mh
 
 _MAX_INFLIGHT = 8
+_DEPTH = 2   # blocks the prefetch thread runs ahead
+_PART = 1 << 18   # fewest rows a thread copies into a ring slot
 _RED = 512   # two-level reduction row width
 
 
@@ -89,6 +97,78 @@ def block_stats(table, bounds_b, q_keys, q_readk):
     return _per_slice(q_readk, bpos), _per_slice(und, bpos)
 
 
+def gather_readk(rk_map, raw, cap: int):
+    """readK of one block on ``raw``'s device: ``rk_map[min(raw, cap)]``
+    with ``raw`` the DB's u32 counts carried as int32 bits (widened, so
+    counts from 2^31 read the map at ``cap`` as every large count does)."""
+    idx = raw.to(torch.int64).bitwise_and_(0xFFFFFFFF).clamp_(max=cap)
+    return rk_map[idx]
+
+
+class _PinnedRing:
+    """Reused pinned host slots of ``rows`` keys (int64) and counts
+    (int32 bits of the u32 values) for the block feed to a card.  The
+    prefetch thread copies a block's rows into a free slot (``fill``);
+    the main thread issues the slot's uploads on its current stream,
+    records the slot's event and frees the slot (``upload``).  ``fill``
+    waits for that event before it writes the slot again, so a slot is
+    refilled only once its uploads have read it.  One thread copies at a
+    fraction of the host's memory bandwidth, so a block's copy runs in
+    parts on up to ``torch.get_num_threads()`` threads; ``close`` ends
+    them."""
+
+    def __init__(self, rows: int, n_slots: int, device: torch.device):
+        self.device = device
+        self.threads = max(1, min(torch.get_num_threads(), rows // _PART))
+        self.pool = ThreadPoolExecutor(self.threads - 1) \
+            if self.threads > 1 else None
+        self.free: queue.Queue = queue.Queue()
+        for _ in range(n_slots):
+            self.free.put((torch.empty(rows, dtype=torch.int64,
+                                       pin_memory=True),
+                           torch.empty(rows, dtype=torch.int32,
+                                       pin_memory=True),
+                           torch.cuda.Event(blocking=True)))
+
+    def fill(self, keys: np.ndarray, raw: np.ndarray):
+        """(slot, n) holding the block's ``n`` rows; prefetch thread."""
+        with span("completeness.slot_wait"):
+            slot = self.free.get()
+            slot[2].synchronize()
+        n = keys.shape[0]
+        dst_k, dst_r = slot[0].numpy(), slot[1].numpy()
+
+        def part(a, b):
+            np.copyto(dst_k[a: b], keys[a: b])
+            np.copyto(dst_r[a: b], raw[a: b])
+
+        with span("completeness.block_copy") as h:
+            parts = max(1, min(self.threads, n // _PART))
+            cuts = [n * i // parts for i in range(parts + 1)]
+            helpers = [self.pool.submit(part, cuts[i], cuts[i + 1])
+                       for i in range(1, parts)]
+            part(cuts[0], cuts[1])
+            for f in helpers:
+                f.result()
+            h.count("keys", n)
+        return slot, n
+
+    def upload(self, slot, n: int):
+        """The slot's first ``n`` keys and counts on the device; main
+        thread."""
+        keys, raw, done = slot
+        stream = torch.cuda.current_stream(self.device)
+        out = (keys[:n].to(self.device, non_blocking=True),
+               raw[:n].to(self.device, non_blocking=True))
+        done.record(stream)
+        self.free.put(slot)
+        return out
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.shutdown()
+
+
 def run_completeness(read_db: KmerDB, asm_db: KmerDB, peak: float,
                      prob_table: ProbTable | None = None, log=sys.stderr,
                      block: int = 1 << 22, asm_table=None, device=None,
@@ -123,15 +203,17 @@ def run_completeness(read_db: KmerDB, asm_db: KmerDB, peak: float,
         bounds_b = bias(torch.from_numpy(
             _slice_bounds(read_db.k).view(np.int64)).to(device))
 
-        # readK on the HOST: one numpy gather per block from the exact map.
-        # It is integer-valued and < 2^32 whenever peak > 0, so the device
-        # sums are exact int64; otherwise (e.g. peak 0) it stays f64.
+        # the exact readK map on the device, gathered there per block from
+        # the raw counts.  It is integer-valued and < 2^32 whenever peak >
+        # 0, so the device sums are exact int64; otherwise (e.g. peak 0)
+        # it stays f64.
         with span("completeness.value_map"):
             rk_host = vmap.read_k_host
             int_ok = bool(np.isfinite(rk_host).all()) \
                 and float(rk_host.max()) < 2**32
-            rk_map = rk_host.astype(np.int64) if int_ok else rk_host
-            cap = np.uint32(min(vmap.vcap, 2**32 - 1))
+            rk_map = torch.from_numpy(
+                rk_host.astype(np.int64) if int_ok else rk_host).to(device)
+            cap = min(vmap.vcap, 2**32 - 1)
 
         # contiguous row ranges to stream: the whole DB, or under a
         # multi-process launch the rank's slice stripe (the reference's
@@ -145,26 +227,33 @@ def run_completeness(read_db: KmerDB, asm_db: KmerDB, peak: float,
                 ranges[-1][1] = b
             else:
                 ranges.append([a, b])
-        run_span.count("keys", sum(b - a for a, b in ranges))
-        cuda = device.type == "cuda"
+        n_keys = sum(b - a for a, b in ranges)
+        run_span.count("keys", n_keys)
+
+        # on a card the rows ride a pinned ring; on the CPU they are the
+        # tensors the block program reads
+        ring = _PinnedRing(min(block, n_keys), _DEPTH + 2, device) \
+            if device.type == "cuda" and n_keys else None
 
         def blocks():
-            """Read rows -> device (keys int64, readK) blocks; runs on the
-            prefetch thread, so the copy of block i+1 overlaps block i."""
+            """Read rows -> (keys int64, counts int32 bits) blocks: a ring
+            slot on a card, else CPU tensors.  Runs on the prefetch
+            thread, so the copy of block i+1 overlaps block i."""
             for a, b in ranges:
                 for lo in range(a, b, block):
                     hi = min(lo + block, b)
+                    kk = np.asarray(read_db.keys[lo: hi],
+                                    np.uint64).view(np.int64)
+                    rv = np.asarray(read_db.vals[lo: hi],
+                                    np.uint32).view(np.int32)
+                    if ring is not None:
+                        yield ring.fill(kk, rv)
+                        continue
                     with span("completeness.block_copy") as h:
                         # a copy: torch takes no read-only (memmapped) array
-                        kk = np.array(read_db.keys[lo: hi], np.uint64)
-                        rv = np.asarray(read_db.vals[lo: hi])
+                        out = (torch.from_numpy(np.array(kk)),
+                               torch.from_numpy(np.array(rv)))
                         h.count("keys", hi - lo)
-                    with span("completeness.readk_gather"):
-                        qk = rk_map[np.minimum(rv, cap)]
-                    with span("completeness.block_upload") as h:
-                        out = (torch.from_numpy(kk.view(np.int64)).to(device),
-                               torch.from_numpy(qk).to(device))
-                        h.count("bytes", kk.nbytes + qk.nbytes if cuda else 0)
                     yield out
 
         compl_total = np.zeros(SLICES, dtype=np.float64)
@@ -177,15 +266,30 @@ def run_completeness(read_db: KmerDB, asm_db: KmerDB, peak: float,
                 compl_undrc[:] += u.cpu().numpy()
 
         inflight: deque = deque()
-        for q_keys, q_readk in prefetch_iter(
-                blocks(), depth=2, wait="completeness.block_wait"):
-            with span("completeness.block_program"):
-                inflight.append(block_stats(asm_table, bounds_b, q_keys,
-                                            q_readk))
-            if len(inflight) > _MAX_INFLIGHT:
+        try:
+            for item in prefetch_iter(blocks(), depth=_DEPTH,
+                                      wait="completeness.block_wait"):
+                with span("completeness.block_upload") as h:
+                    if ring is None:
+                        q_keys, raw = item
+                        h.count("bytes", 0)
+                        h.count("pinned", 0)
+                    else:
+                        q_keys, raw = ring.upload(*item)
+                        h.count("bytes", q_keys.nbytes + raw.nbytes)
+                        h.count("pinned", 1)
+                with span("completeness.readk_gather"):
+                    q_readk = gather_readk(rk_map, raw, cap)
+                with span("completeness.block_program"):
+                    inflight.append(block_stats(asm_table, bounds_b, q_keys,
+                                                q_readk))
+                if len(inflight) > _MAX_INFLIGHT:
+                    fetch(inflight.popleft())
+            while inflight:
                 fetch(inflight.popleft())
-        while inflight:
-            fetch(inflight.popleft())
+        finally:
+            if ring is not None:
+                ring.close()
 
         for ii in owned:
             _slice_line(ii, compl_total, compl_undrc, log)

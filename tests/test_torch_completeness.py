@@ -15,12 +15,15 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke as cs
 from merfin_tpu.io.mkdb import KmerDB
 from merfin_tpu.modes.completeness import run_completeness as jax_run
 from merfin_tpu_torch.modes.completeness import (build_asm_table,
+                                                 gather_readk,
                                                  run_completeness)
+from merfin_tpu_torch.score.value_map import ValueMap
 from tests import refmodel
 from tests.test_torch_hist import WORLDS, _env
 from tests.util import db_from_dict
@@ -145,3 +148,91 @@ def test_wide_readk_and_f64_branch_match_jax(peak, tmp_path):
         assert math.isnan(got["completeness"])
     else:
         assert math.isfinite(got["total"]) and got["total"] > 3e9
+
+
+# the value map's cap once the largest count passes 2^21; each count
+# below is a DB row of the edge-count world (count 0 included)
+_CAP = 1 << 22
+EDGE_COUNTS = {"0": 0, "1": 1, "cap-1": _CAP - 1, "cap": _CAP,
+               "cap+1": _CAP + 1, "2^31": 1 << 31, "2^32-1": (1 << 32) - 1}
+
+
+@pytest.mark.parametrize("peak", [20.0, 0.0], ids=["int64_map", "f64_map"])
+@pytest.mark.parametrize("count", list(EDGE_COUNTS.values()),
+                         ids=list(EDGE_COUNTS))
+def test_device_readk_gather_matches_host_gather(count, peak):
+    """The device gather from raw counts carried as int32 bits reads the
+    exact map where the host's ``rk_map[np.minimum(rv, cap)]`` does,
+    in the map's dtype: int64, or f64 (inf past 0) at peak 0."""
+    vmap = ValueMap(peak, None, max(EDGE_COUNTS.values()), exact_max=True)
+    assert vmap.vcap == _CAP
+    rk_map = vmap.read_k_host.astype(np.int64) if peak else vmap.read_k_host
+    rv = np.array([count, 1, count, 0], np.uint32)
+    want = rk_map[np.minimum(rv, np.uint32(_CAP))]
+    got = gather_readk(torch.from_numpy(rk_map),
+                       torch.from_numpy(rv.view(np.int32)), _CAP)
+    assert got.dtype == torch.from_numpy(want).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _edge_dbs(tmp_path):
+    """A k=5 read DB holding every EDGE_COUNTS count, on keys spread over
+    several slices, and an asm DB sharing some of its k-mers (one asm
+    count above its read count, one asm-only k-mer)."""
+    k = 5
+    canon = []
+    for s in ("AAAAC", "ACGTA", "CATAG", "CCGTT", "GATCC", "GCGCA", "TTACG",
+              "AGGAC"):
+        c = min(s, refmodel.revcomp(s))
+        if c not in canon:
+            canon.append(c)
+    reads = dict(zip(canon, EDGE_COUNTS.values()))
+    asm = {canon[1]: 3, canon[2]: 1 << 22, canon[4]: 7, canon[6]: 2,
+           canon[-1]: 9}
+    assert len(reads) == len(EDGE_COUNTS) and canon[-1] not in reads
+    return (db_from_dict(reads, k, str(tmp_path / "r")),
+            db_from_dict(asm, k, str(tmp_path / "a")))
+
+
+@pytest.mark.parametrize("peak", [
+    20.0,    # int64 map
+    1e-6,    # f64 map: readK past 2^32 in the map
+    0.0,     # f64 map: inf readK (the CLI takes no -peak 0)
+])
+def test_edge_counts_ragged_blocks_match_jax_cli(peak, tmp_path):
+    """The edge counts through run_completeness in blocks of 3 (a ragged
+    last block of 1) and in one block: per-slice lines and totals equal
+    the JAX package's, and, where the CLI takes the peak, the JAX CLI's
+    and the port CLI's stderr byte for byte."""
+    rdb, adb = _edge_dbs(tmp_path)
+    assert rdb.distinct % 3 == 1
+
+    def port_log(**kw):
+        log = io.StringIO()
+        got = run_completeness(rdb, adb, peak, log=log, device="cpu", **kw)
+        return log.getvalue(), got
+
+    log3, got3 = port_log(block=3)
+    log1, got1 = port_log()
+    jlog = io.StringIO()
+    want = jax_run(rdb, adb, peak, log=jlog)
+    assert log3 == log1 == jlog.getvalue()
+    for got in (got3, got1):
+        for key in ("total", "undrc", "completeness"):
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-12)
+    if peak == 20.0:   # the integer branch sums exactly
+        assert got3 == want
+    if peak == 0.0:
+        return
+    argv = ["-completeness", "-readmers", rdb.path, "-seqmers", adb.path,
+            "-peak", repr(peak)]
+    err = {}
+    for tag, pkg in (("port", "merfin_tpu_torch"), ("jax", "merfin_tpu")):
+        p = subprocess.run(cs.counted_cli(pkg) + argv, cwd=tmp_path,
+                           env=_env(tmp_path), capture_output=True,
+                           text=True, timeout=600)
+        assert p.returncode == 0, (tag, p.stderr[-3000:])
+        err[tag] = p.stderr
+    assert err["port"] == err["jax"]
+    assert cs.completeness_lines(err["jax"]) == \
+        cs.completeness_lines(log3)

@@ -2,7 +2,8 @@
 (union_join, sorted_join, window_join, and the earlier binary search and
 stream designs) vs its plain version on random tables, on the windowed
 joins' edge cases and on window tables whose keys repeat, -hist,
--completeness, -dump and the variant modes on CUDA vs on the CPU, the
+-completeness, -dump and the variant modes on CUDA vs on the CPU
+(-completeness also through a many-times-wrapped pinned ring), the
 fused variant scorer on CUDA (union join and gather probe) vs on the
 CPU, the gather tables on CUDA vs HostLookup, the counter's device
 accumulator and device step vs the numpy counter, the sharded tables'
@@ -116,6 +117,64 @@ def test_modes_cuda_match_cpu(cuda, mode, tmp_path, monkeypatch):
         assert got[0].count(b"\n") > 100_000
     else:
         assert "COMPLETENESS" in got[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", [1 << 18, 1000], ids=["one_part", "parts"])
+def test_completeness_pinned_ring_wraps(cuda, part, tmp_path, monkeypatch):
+    """-completeness on CUDA in blocks of 4,096, so its four pinned slots
+    are refilled many times (each block copied in one part, or in parts
+    of about 1,000 rows), with each block program held up on the host
+    and, longer, on the device (a sleep kernel ahead of the next block's
+    upload), so that slots come free before their uploads have run: a
+    slot refilled before its upload had read it changes the sums (as it
+    does with the wait for the slot's event taken out).  The lines equal
+    the CPU run's, and every block went through the ring."""
+    import io
+    import math
+    import time
+
+    import chip_smoke as cs
+    from merfin_tpu_torch.io.mkdb import KmerDB
+    from merfin_tpu_torch.modes import completeness as mod
+    from merfin_tpu_torch.utils import spans
+
+    world = cs.parity_world(5, 200_000, k=21)
+    argv = cs.materialize(world, str(tmp_path))
+    read_db = KmerDB(argv[argv.index("-readmers") + 1])
+    asm_db = KmerDB(argv[argv.index("-seqmers") + 1])
+    block = 4096
+    n_blocks = math.ceil(read_db.distinct / block)
+    assert n_blocks > 10 * (mod._DEPTH + 2)
+
+    def lines(device):
+        log = io.StringIO()
+        mod.run_completeness(read_db, asm_db, world["peak"], log=log,
+                             block=block, device=device)
+        return log.getvalue()
+
+    want = lines("cpu")
+    fast = mod.block_stats
+
+    def slow(*args):
+        time.sleep(0.0005)
+        torch.cuda._sleep(20_000_000)
+        return fast(*args)
+
+    monkeypatch.setattr(mod, "block_stats", slow)
+    monkeypatch.setattr(mod, "_PART", part)
+    spans.clear()
+    spans.enable()
+    try:
+        got = lines(cuda)
+    finally:
+        spans.disable()
+    tot = spans.totals()
+    spans.clear()
+    assert got == want
+    assert tot["completeness.block_upload"]["counts"] == {
+        "bytes": 12 * read_db.distinct, "pinned": n_blocks}
+    assert tot["completeness.slot_wait"]["calls"] == n_blocks
 
 
 @pytest.mark.gpu

@@ -18,10 +18,10 @@ from tests.test_torch_variants import heavy_world
 
 COMPLETENESS_MAIN = ("completeness.run", "completeness.value_map",
                      "completeness.block_wait",
+                     "completeness.block_upload",
+                     "completeness.readk_gather",
                      "completeness.block_program", "completeness.fetch")
-COMPLETENESS_PREFETCH = ("completeness.block_copy",
-                         "completeness.readk_gather",
-                         "completeness.block_upload")
+COMPLETENESS_PREFETCH = ("completeness.block_copy",)
 POLISH_MAIN = ("variants.run", "vcf.load", "vcf.merge", "fasta.parse",
                "variants.prepare", "variants.block_wait", "scorer.dispatch",
                "scorer.fetch", "variants.select", "variants.write")
@@ -91,12 +91,16 @@ def test_completeness_spans(tmp_path, recorder, block):
             assert run.start <= s.start <= s.end <= run.end
     copies = by["completeness.block_copy"]
     assert sum(s.counts["keys"] for s in copies) == read_db.distinct
-    # CPU tensors: nothing is handed to a CUDA copy
-    assert all(s.counts == {"bytes": 0}
+    # CPU tensors: nothing is handed to a CUDA copy, no block goes
+    # through the pinned ring, and so no slot is waited for
+    assert all(s.counts == {"bytes": 0, "pinned": 0}
                for s in by["completeness.block_upload"])
+    assert "completeness.slot_wait" not in by
     # one wait per block and one for the end of the stream
     assert len(by["completeness.block_wait"]) == n_blocks + 1
-    assert len(by["completeness.block_program"]) == n_blocks
+    for name in ("completeness.block_upload", "completeness.readk_gather",
+                 "completeness.block_program"):
+        assert len(by[name]) == n_blocks, name
     tot = recorder.totals()
     assert tot["completeness.block_copy"]["calls"] == n_blocks
     assert tot["completeness.block_copy"]["counts"] == {
