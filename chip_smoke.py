@@ -54,7 +54,13 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               repeat: runs of 2-5 equal keys, runs across chunk
               boundaries and tile boundaries, a run of 5,000+ keys,
               wrapping sums, windows on each side of its chunk size and
-              dense/wide threshold, sentinels and ragged lengths;
+              dense/wide threshold, sentinels and ragged lengths.
+              path_sum (the fused scorer's f64 totdK, -prob) against its
+              plain version, bit for bit, and timed beside the two-level
+              prefix difference it replaced, at the main path's shapes:
+              the heavy cluster's first 2^23-window span and a light
+              dispatch of 2^23 windows (SNP paths of k windows every
+              3k-2), on values of the f64 branch's deltas;
   4. oracle   small worlds through the CLI on CUDA: the verify recipe's
               world and a fragmented 200 kb world with a -prob table are
               held byte for byte to tests/refmodel.py:hist_mode; the same
@@ -67,6 +73,9 @@ the variant modes) end to end on the GPU and checks them, phase by phase
               lines.  The variant modes (each mode, and -polish on the
               host scorer) on both worlds equal the port's CPU run byte
               for byte; the recipe world gives its 3 true corrections;
+              the -prob world's -polish run launches path_sum (its
+              launches counted), the recipe world's and the host
+              scorer's none;
   5. full     a synthetic 64 Mbp assembly (4 large scaffolds, 2,000
               contigs of 1-20 kb, N gaps, 2,000 substitutions; k=21,
               peak 30) against a read DB of the true genome's k-mers at
@@ -136,7 +145,7 @@ the kernels (launches in each main path, each run with the counts set
 to 0 just before it, and their sum; max |kernel - plain|; ms, plain_ms,
 bsearch_ms or stream_ms (the earlier design), library_ms, the device_ms
 of each, and bound_ms at the main path's shape, and at every timed shape
-under "shapes"), the card's
+under "shapes"; path_sum's earlier design is two_level_ms), the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and
 {"ok": true, "device": {...}}.
 
@@ -735,24 +744,31 @@ def vcf_records(vcf: bytes) -> int:
 
 
 def check_small_variants(tmp: str, seed: int, bases: int,
-                         platform: str) -> None:
+                         platform: str) -> int:
     """Phase 4, the variant modes: the recipe world and the -prob world
     through the CLI on ``platform``, every mode and -polish -nodevscore.
     On CUDA each run's VCF and stderr equal the same run's on the CPU
     (MERFIN_PLATFORM=cpu, in this process) byte for byte.  The recipe world gives exactly its three
     true corrections (-polish and -better as 1/1 records with int-cast
     quals; -filter replays the original records) and never the spurious
-    call."""
+    call.  Returns the path-sum kernel's launches in the -prob world's
+    -polish run (the fused scorer's f64 branch; on CUDA more than 0, and
+    none in the recipe world's or on the host scorer)."""
+    from merfin_tpu_torch.ops.path_sum import path_sum_kernel
+
     worlds = {"recipe": recipe_world(), "parity": parity_world(seed, bases)}
+    launches = {}
     for name, world in worlds.items():
         t0 = time.perf_counter()
         d = os.path.join(tmp, name)
         argv = materialize(world, d)
         got = {}
         for tag, run in variant_runs(argv):
+            path_sum_kernel.launches = 0
             got[tag] = run_port_inprocess(
                 run, os.path.join(d, f"var-{platform}", tag), out="out",
                 output=variant_vcf(run))[:2]
+            launches[name, tag] = path_sum_kernel.launches
             if platform == "cuda":
                 want = run_port_inprocess(
                     run, os.path.join(d, "var-cpu", tag), out="out",
@@ -772,7 +788,13 @@ def check_small_variants(tmp: str, seed: int, bases: int,
             assert n_rec["polish"] == n_rec["filter"] == 3, n_rec
         say(f"  {name}: variant modes, records {n_rec}"
             f"{', equal to the CPU run byte for byte' if platform == 'cuda' else ''}"
+            f"; path_sum launches of -polish {launches[name, 'polish']}"
             f" ({time.perf_counter() - t0:.1f} s)")
+    n = launches["parity", "polish"]
+    assert launches["recipe", "polish"] == 0, launches
+    assert launches["parity", "polish_host"] == 0, launches
+    assert n > 0 if platform == "cuda" else n == 0, launches
+    return n
 
 
 def _mkdir(d: str) -> str:
@@ -1146,6 +1168,7 @@ def join_bytes(keys, q, nv: int) -> int:
 # the earlier design of each kernel, kept as a measured entry: its key
 # in the kernels line and its label
 OLD_LABELS = {"bsearch_ms": "binary search", "stream_ms": "PR 2 stream"}
+OLD_LABELS["two_level_ms"] = "two-level prefix"     # path_sum's
 
 
 def time_turns(kernel_fn, plain_fn, reps: int, old=None) -> dict:
@@ -1230,9 +1253,10 @@ def fmt_times(t: dict) -> str:
         if key in t:
             dev = t[key.replace("_ms", "_device_ms")]
             s += f", {label} {t[key]:.4f} ms (device {dev:.4f})"
-    return (s + f", torch.searchsorted {t['library_ms']:.4f} ms (device "
-            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
-            f"({t['bytes']} bytes)")
+    if "library_ms" in t:
+        s += (f", torch.searchsorted {t['library_ms']:.4f} ms (device "
+              f"{t['library_device_ms']:.4f})")
+    return s + f", bound {t['bound_ms']:.4f} ms ({t['bytes']} bytes)"
 
 
 def _u32_err(a, b) -> int:
@@ -1394,6 +1418,79 @@ def check_single(table, q_np: np.ndarray, reps: int):
     return err, measure(table.keys, q, 1, reps,
                         lambda: table.lookup_sorted(q),
                         lambda: table.lookup_plain(q), old_entry), hits
+
+
+def path_sum_spans(w: dict, plan: dict, rng, windows: int = 1 << 23):
+    """The path-sum kernel's shapes on the main path (the fused scorer's
+    f64 branch, -prob), [(label, values f64, b_start, b_end int64)]:
+    "heavy span", the bounds of the first ``windows``-window span of a
+    heavy cluster (heavy_span's, padded as the scorer pads them); "light
+    span", the widest dispatch of light clusters (query_budget windows),
+    whose SNP and 1/2-site paths are each a 2k-1-base stretch and k-1
+    separators: k windows every 3k-2 (padded alike).  The values
+    are what the branch's per-window deltas are: 0 or plus or minus a
+    table probability."""
+    k = w["k"]
+    _, packed, _, _ = heavy_span(w, plan, windows)
+    spans = [("heavy span", packed[-2].astype(np.int64),
+              packed[-1].astype(np.int64))]
+    P = (windows - k) // (3 * k - 2) + 1
+    b_start = np.zeros(max(64, 1 << (P - 1).bit_length()), np.int64)
+    b_start[:P] = np.arange(P) * (3 * k - 2)
+    b_end = b_start.copy()
+    b_end[:P] += k
+    spans.append(("light span", b_start, b_end))
+    out = []
+    for label, b_start, b_end in spans:
+        vals = rng.integers(-1, 2, windows) * (1.0 - rng.random(windows)
+                                               * 3e-3)
+        out.append((label, vals, b_start, b_end))
+    return out
+
+
+def check_path_sum(spans: list, reps: int, device: str = "cuda"):
+    """The path-sum kernel against its plain version (path_sums_plain:
+    the same order, one column of the paths at a time) on each of
+    ``spans``, bit for bit; with reps > 0 each span's times: kernel and
+    plain in turns with the two-level prefix difference it replaced (the
+    earlier design; another order, so not bit-exact), the profiler's
+    device times and the bound (8 B a path window read, 16 B of bounds
+    read and 8 B written a path slot, over 3.35 TB/s).  -> (max |kernel -
+    plain| over every span, {label: times})."""
+    import torch
+
+    from merfin_tpu_torch.ops.path_sum import path_sums, path_sums_plain
+    from merfin_tpu_torch.variants.device_score import _prefix
+
+    errs, shapes = [], {}
+    for label, vals_np, s_np, e_np in spans:
+        v, s, e = (torch.from_numpy(x).to(device)
+                   for x in (vals_np, s_np, e_np))
+        got, want = path_sums(v, s, e), path_sums_plain(v, s, e)
+        errs.append(float((got - want).abs().max()) if got.numel() else 0.0)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64)), \
+            f"path_sum kernel != plain on the {label}"
+        if not reps:
+            continue
+
+        def two_level(v=v, s=s, e=e):
+            at = _prefix(v, torch.float64)
+            return at(e) - at(s)
+
+        def kernel(v=v, s=s, e=e):
+            return path_sums(v, s, e)
+
+        t = time_turns(kernel, lambda: path_sums_plain(v, s, e), reps,
+                       ("two_level_ms", two_level))
+        t["device_ms"] = device_ms(kernel)
+        t["two_level_device_ms"] = device_ms(two_level)
+        t["bytes"] = int(8 * (e - s).clamp(min=0).sum() + 24 * s.numel())
+        t["bound_ms"] = t["bytes"] / H100_BYTES_PER_S * 1e3
+        t["bound_by"] = "bytes"
+        t["paths"] = int((e > s).sum())
+        t["windows"] = int(v.numel())
+        shapes[label] = t
+    return max(errs), shapes
 
 
 def ratio_queries(rng, keys: np.ndarray, m: int, lo: int, hi: int):
@@ -1703,6 +1800,7 @@ def main() -> int:
         return 1
     os.environ["MERFIN_PLATFORM"] = "cuda"
     from merfin_tpu_torch.ops import _build
+    from merfin_tpu_torch.ops.path_sum import path_sum_kernel
     from merfin_tpu_torch.ops.sorted_join import sorted_join_kernel
     from merfin_tpu_torch.ops.union_join import (UnionTable,
                                                  union_join_kernel)
@@ -1717,7 +1815,8 @@ def main() -> int:
             f"count {torch.cuda.device_count()}")
         assert cap == (9, 0), f"needs compute capability (9, 0), got {cap}"
 
-    kernels = (union_join_kernel, sorted_join_kernel, window_join_kernel)
+    kernels = (union_join_kernel, sorted_join_kernel, window_join_kernel,
+               path_sum_kernel)
     with phase("2 build"):
         t0 = time.perf_counter()
         libs = sorted({kern.lib for kern in kernels})
@@ -1817,17 +1916,26 @@ def main() -> int:
                 adb, rdb, rng, args.reps, edges,
                 [("mesh dispatch", "2^19 sorted windows", q19),
                  ("mesh variant span", "the heavy 2^23-window span", qv)]))
-
-        with phase("4 oracle"):
-            check_small_worlds(tmp, args.seed, args.small_bases, args.repeat,
-                               "cuda")
-            check_small_modes(tmp, args.seed, args.small_bases, "cuda")
-            check_small_variants(tmp, args.seed, args.small_bases, "cuda")
+            ps_err, ps_t = check_path_sum(path_sum_spans(
+                w, plan, np.random.default_rng(args.seed + 23)), args.reps)
+            for label, t in ps_t.items():
+                say(f"  path_sum, {label} ({t['paths']} paths, "
+                    f"{t['windows']} windows): bit-exact; {fmt_times(t)} "
+                    f"(median of {args.reps}; {smi})")
+            report[path_sum_kernel.name] = kernel_report(
+                [ps_err], ps_t, "heavy span")
 
         # each main path runs with the launch counts set to 0 just before
         # it and read just after; a kernel reports its launches in each
         # path and their sum
         by_path = {kern.name: {} for kern in kernels}
+        with phase("4 oracle"):
+            check_small_worlds(tmp, args.seed, args.small_bases, args.repeat,
+                               "cuda")
+            check_small_modes(tmp, args.seed, args.small_bases, "cuda")
+            by_path[path_sum_kernel.name]["-polish -prob"] = \
+                check_small_variants(tmp, args.seed, args.small_bases,
+                                     "cuda")
         with phase("5 full"):
             by_path[union_join_kernel.name]["-hist"] = _run_full(
                 w, os.path.join(tmp, "full", "run"))

@@ -14,8 +14,8 @@ either the union join on a card and the gather tables on the CPU;
 -completeness runs on the single-value sorted join.  The variant modes
 (-filter, -polish, -better, -strict, -loose) score candidate paths with
 the fused device scorer (the union join on a card, the gather tables on
-the CPU) or, for -debug, -nodevscore and -polish with a -prob table,
-with the host scorer, which probes the gather tables.  Without
+the CPU), -polish with a -prob table included, or, for -debug and
+-nodevscore, with the host scorer, which probes the gather tables.  Without
 -seqmers every mode first counts <seq.fasta> into <basename>.meryl on
 the device.  The meryl-analog database tools (count / import / print /
 export / statistics / histogram / intersect / union-sum / subtract /
@@ -190,7 +190,7 @@ def _usage() -> None:
         "             -threads N       enumerate heavy clusters on N processes (0 = all cores)\n"
         "             -debug           per-path scores to <output>.00.debug.gz\n"
         "             -devscore / -nodevscore   fused device scoring (default: on,\n"
-        "                              except for -debug and for -polish with -prob)\n"
+        "                              except for -debug)\n"
         "             -resume          restart at the last finished sequence\n"
         "\n"
         "  -hist\n"
@@ -437,14 +437,13 @@ def run(cfg: MerfinConfig) -> int:
 def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
                       asm_lookup, prob, seq_file, log, mesh=None) -> int:
     """The variant modes, as the JAX CLI runs them: the VCF and its
-    clusters, the devscore rule, then the fused device scorer or the host
-    scorer, on the lookups or, with ``mesh``, on the sharded tables (on a
-    mesh over several processes every rank evaluates every cluster).  The
-    host scorer probes ``lookup_np`` of each table."""
+    clusters, the scorer of ``modes/variants.py:make_scorer``, then the
+    fused device scorer or the host scorer, on the lookups or, with
+    ``mesh``, on the sharded tables (on a mesh over several processes
+    every rank evaluates every cluster).  The host scorer probes
+    ``lookup_np`` of each table."""
     from merfin_tpu_torch.io.vcf import VcfFile
-    from merfin_tpu_torch.modes.variants import run_variants
-    from merfin_tpu_torch.variants.device_score import (DeviceScorer,
-                                                        ShardedScorer)
+    from merfin_tpu_torch.modes.variants import make_scorer, run_variants
 
     print(f"-- Opening vcf file '{cfg.vcf_name}'.", file=log)
     vcf = VcfFile(cfg.vcf_name, log=log)
@@ -453,34 +452,17 @@ def _run_variant_mode(cfg: MerfinConfig, k: int, read_db, read_lookup,
     vcf.merge_clusters(k, cfg.comb, cfg.nosplit, log=log)
 
     print("-- Generate variant mers and score them.", file=log)
-    # Fused device scoring is the default for the numM-only modes, and
-    # for -polish when its totdk sums are integers (no -prob table, and
-    # ValueMap.int_scorer_ok, checked below); -debug and -polish with a
-    # -prob table keep the host scorer.
-    use_dev = cfg.devscore
-    if use_dev is None:
-        use_dev = not cfg.debug and (
-            cfg.report_type != "polish" or prob is None)
-    elif use_dev and cfg.debug:
-        print("ERROR: -debug needs per-window K* stats; it cannot run "
-              "with -devscore.", file=log)
+    # Fused device scoring is the default for every variant mode, -polish
+    # with a -prob table included (its f64 totdk is summed in merfin's
+    # order, bit for bit); -debug and -nodevscore keep the host scorer.
+    try:
+        scorer = make_scorer(read_lookup, asm_lookup, k, cfg.peak, prob,
+                             _db_max(read_db),
+                             devscore=cfg.devscore, debug=cfg.debug,
+                             mesh=mesh, log=log)
+    except ValueError as e:
+        print(f"ERROR: {e}", file=log)
         return 1
-    scorer = None
-    if use_dev:
-        print("-- Using fused device scoring (-devscore).", file=log)
-        if mesh is not None:
-            scorer = ShardedScorer(mesh, read_lookup, asm_lookup, k,
-                                   cfg.peak, prob, max_value=_db_max(read_db),
-                                   exact_max=True)
-        else:
-            scorer = DeviceScorer(read_lookup, asm_lookup, k, cfg.peak, prob,
-                                  max_value=_db_max(read_db), exact_max=True)
-        if (cfg.report_type == "polish" and cfg.devscore is None
-                and not scorer.value_map.int_scorer_ok()):
-            print("-- Device scoring lacks the integer fast path "
-                  "here; using the host scorer for -polish.", file=log)
-            scorer.close()
-            scorer = None
     try:
         run_variants(cfg.report_type, seq_file, vcf, k,
                      read_lookup.lookup_np, asm_lookup.lookup_np, cfg.peak,

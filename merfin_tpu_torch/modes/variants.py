@@ -41,6 +41,7 @@ from merfin_tpu_torch.io.vcf import PosGT, VcfFile
 from merfin_tpu_torch.score.kstar import ProbTable
 from merfin_tpu_torch.utils.checkpoint import Checkpoint, truncate_to
 from merfin_tpu_torch.utils.spans import carry, span
+from merfin_tpu_torch.utils.spans import enabled as spans_on
 from merfin_tpu_torch.variants import select
 from merfin_tpu_torch.variants.enumerate import VarPath, enumerate_paths
 from merfin_tpu_torch.variants.score import (PathScore, dispatch_blocks,
@@ -121,6 +122,39 @@ def _est_paths(haps) -> int:
         if est >= 1 << 20:
             break
     return est
+
+
+def het_records(text: str) -> int:
+    """Records of a -polish result written by getHetRecord with a het
+    genotype (0/1, 1/2 or 1/0)."""
+    return sum(text.count(f"\tGT\t{gt}\n") for gt in ("0/1", "1/2", "1/0"))
+
+
+def make_scorer(read_lookup, asm_lookup, k: int, peak: float,
+                prob_table: ProbTable | None, max_value: int,
+                devscore: bool | None = None, debug: bool = False,
+                mesh=None, log=sys.stderr):
+    """The scorer a variant job runs with: the fused device scorer
+    (``DeviceScorer``, or ``ShardedScorer`` on a mesh) for every mode,
+    -polish with a -prob table included, or None for the host scorer
+    with -debug (which needs per-window K* stats) or -nodevscore
+    (``devscore`` False).  Raises ValueError for -debug with -devscore.
+    ``max_value`` is the read DB's true maximum."""
+    use_dev = (not debug) if devscore is None else devscore
+    if use_dev and debug:
+        raise ValueError("-debug needs per-window K* stats; it cannot run "
+                         "with -devscore.")
+    if not use_dev:
+        return None
+    from merfin_tpu_torch.variants.device_score import (DeviceScorer,
+                                                        ShardedScorer)
+
+    print("-- Using fused device scoring (-devscore).", file=log)
+    if mesh is not None:
+        return ShardedScorer(mesh, read_lookup, asm_lookup, k, peak,
+                             prob_table, max_value=max_value, exact_max=True)
+    return DeviceScorer(read_lookup, asm_lookup, k, peak, prob_table,
+                        max_value=max_value, exact_max=True)
 
 
 def _enumerate_task(args):
@@ -261,6 +295,9 @@ def _score_fused(mode, prepared, task_args, heavy, get_pool, scorer, k,
                 if prepared[idx] is not None:
                     selected[idx] = _select_block_task(
                         (mode, blocks[idx], scores[idx], prepared[idx][0], k))
+                    if mode == "polish" and spans_on():
+                        h.count("het_records",
+                                het_records(selected[idx][0]))
             h.count("clusters", b - a)
 
     pending: collections.deque = collections.deque()

@@ -5,8 +5,8 @@ One device program per span of the packed candidate-path stream:
 unpack the 2-bit transfer planes, k-mer windows, canonical mer, the two
 DB values in window order, the even-k palindrome multiplier, getK and
 the K*/delta math (``_stream_math``) and the per-path reduction to
-(num_m, totdk) (``_boundary_reduce``).  Only those two numbers per path
-come back; the selectors stay on the host.
+(num_m, totdk) (``_boundary_reduce``, ``ops/path_sum.py``).  Only those
+two numbers per path come back; the selectors stay on the host.
 
 The DB values come from one of two probes, as in the JAX scorer
 (``sortjoin``; auto: the union join on a card, the gather tables on the
@@ -17,14 +17,20 @@ the gather tables (``table/lookup.py:DeviceLookup``), with no sort.
 
 Exactness: num_m is an exact integer prefix difference.  Without a
 -prob table (``ValueMap.int_scorer_ok``) the delta sums are int64 and
-exact in any order, and are fetched as int64.  On the f64 path the sum
-keeps the JAX package's two-level association (512-wide rows, then the
-row totals); the row cumsums on CUDA add in another order than on the
-CPU, so f64 totdk is held to 1e-9 relative, not to bits.
+exact in any order, and are fetched as int64.  On the f64 path each
+path's deltas are added in path order, one at a time from 0.0
+(``ops/path_sum.py``: a CUDA kernel on a card, plain torch on the CPU),
+which is merfin's getTotdK bit for bit; the per-window deltas are
+separate roundings (|readK-asmK|*prob, |readK-asmK'|*prob, then the
+difference), never a fused multiply-add.  So the f64 totdk equals the
+host scorer's and merfin's to the last bit, on which -polish's int
+ordering and its equality test for het records depend.
 
-Two deliberate divergences from the JAX scorer: the integer totdk is
-fetched as int64, not cast to f64 first; and every span's overflow count
-is added once, by the one fetch path (there is no fallback fetch).
+Three deliberate divergences from the JAX scorer: the f64 totdk is the
+in-order sum, not the JAX package's two-level prefix difference
+(512-wide rows, then the row totals); the integer totdk is fetched as
+int64, not cast to f64 first; and every span's overflow count is added
+once, by the one fetch path (there is no fallback fetch).
 
 ``ShardedScorer`` is the same program over the sharded tables of a
 ``-mesh`` (``parallel/sharded.py:dual_probe_local``, positional).
@@ -37,6 +43,7 @@ import torch
 
 from merfin_tpu_torch import convert
 from merfin_tpu_torch.kcore.pack import pack_transfer_np
+from merfin_tpu_torch.ops import path_sum
 from merfin_tpu_torch.ops.kmer_ops import (U64_MAX, bias,
                                           canonical_and_mult, kmer_windows,
                                           umin, unpack_transfer)
@@ -101,37 +108,44 @@ def _stream_math(value_map: ValueMap, vm, read_v, asm_v, valid, adjust,
     return missing, o_delta - n_delta, overflow
 
 
-_RED = 512   # row width of the two-level prefix reduction
+_RED = 512   # row width of the two-level integer prefix reduction
+
+
+def _prefix(x, acc_dtype):
+    """``at(pos)``: the sum of x[:pos] (int64 window indexes), from a
+    two-level prefix as in the JAX package: a cumsum within 512-wide
+    rows, then over the row totals; the stream length is a multiple of
+    512.  Exact for integers only."""
+    x2 = x.reshape(-1, _RED).to(acc_dtype)
+    rcs = torch.cumsum(x2, dim=1)
+    crow = torch.nn.functional.pad(torch.cumsum(rcs[:, -1], dim=0), (1, 0))
+    rows = x2.shape[0]
+    zero = torch.zeros((), dtype=acc_dtype, device=x.device)
+
+    def at(pos):
+        r = torch.clamp(pos // _RED, max=rows - 1)
+        c = pos - r * _RED   # == _RED at the clamped stream end
+        within = torch.where(c > 0, rcs[r, (c - 1).clamp(min=0)], zero)
+        return crow[r] + within
+
+    return at
 
 
 def _boundary_reduce(missing, dkstr, b_start, b_end):
-    """Per-path (missing count int32, dkstr sum) as prefix differences at
-    the path boundaries ``b_start``/``b_end`` (int64 window indexes).
-    Prefixes are two-level, as in the JAX package: a cumsum within
-    512-wide rows, then over the row totals; the stream length is a
-    multiple of 512."""
-
-    def prefix_fn(x, acc_dtype):
-        x2 = x.reshape(-1, _RED).to(acc_dtype)
-        rcs = torch.cumsum(x2, dim=1)
-        crow = torch.nn.functional.pad(torch.cumsum(rcs[:, -1], dim=0),
-                                       (1, 0))
-        rows = x2.shape[0]
-        zero = torch.zeros((), dtype=acc_dtype, device=x.device)
-
-        def at(pos):
-            r = torch.clamp(pos // _RED, max=rows - 1)
-            c = pos - r * _RED   # == _RED at the clamped stream end
-            within = torch.where(c > 0, rcs[r, (c - 1).clamp(min=0)], zero)
-            return crow[r] + within
-
-        return at
-
-    d_acc = (torch.float64 if dkstr.dtype.is_floating_point
-             else torch.int64)
-    m_at = prefix_fn(missing, torch.int32)
-    d_at = prefix_fn(dkstr, d_acc)
-    return m_at(b_end) - m_at(b_start), d_at(b_end) - d_at(b_start)
+    """Per-path (missing count int32, dkstr sum) over the path
+    boundaries ``b_start``/``b_end`` (int64 window indexes): the counts
+    and integer sums as prefix differences, an f64 dkstr summed in path
+    order by ``path_sum.path_sums`` (span ``scorer.path_sum``, counting
+    the path slots and the stream's windows of the launch)."""
+    m_at = _prefix(missing, torch.int32)
+    num_m = m_at(b_end) - m_at(b_start)
+    if not dkstr.dtype.is_floating_point:
+        d_at = _prefix(dkstr, torch.int64)
+        return num_m, d_at(b_end) - d_at(b_start)
+    with span("scorer.path_sum") as h:
+        h.count("paths", b_start.shape[0])
+        h.count("windows", dkstr.shape[0])
+        return num_m, path_sum.path_sums(dkstr, b_start, b_end)
 
 
 def _pack_inputs(codes: np.ndarray, adjust: np.ndarray,
@@ -289,6 +303,7 @@ class DeviceScorer:
         """Launch every span's program; returns the token for
         fetch_paths: (P, [(i, j, (num_m, totdk, overflow))])."""
         with span("scorer.dispatch") as h:
+            h.count("f64", 0 if self.int_path else 1)
             P = nis.shape[0]
             n = max(0, codes.shape[0] - self.k + 1)
             if n == 0 or P == 0:

@@ -119,11 +119,15 @@ def get_het_record(pos_gt: PosGT, gt1: list[int], gt2: list[int]) -> str:
 
 
 def tot_dk(score: PathScore) -> float:
-    """getTotdK (varMer.C:648-659); device-reduced scores carry it as a
-    precomputed scalar (the per-window arrays never left the chip)."""
+    """getTotdK (varMer.C:648-659): the deltas added in path order, one
+    at a time (np.sum's pairwise order can differ in the last bit, on
+    which -polish's ordering and het test depend); device-reduced scores
+    carry the same sum as a precomputed scalar (the per-window arrays
+    never left the chip)."""
     if score.totdk is not None:
         return score.totdk
-    return float(np.sum(score.dkstr)) if score.dkstr.size else 0.0
+    return float(np.add.accumulate(score.dkstr)[-1]) if score.dkstr.size \
+        else 0.0
 
 
 def best_variant(paths, scores, pos_gt: PosGT, k: int) -> str:

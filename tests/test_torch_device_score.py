@@ -6,7 +6,8 @@ stand-in of the Pallas union join).  The port's scorers probe the JAX
 gather tables carried across by ``convert.device_lookup_from_jax``, by
 the union join or by the gather probe.  Tolerances: integers (num_m, the
 integer path's totdk, masks, overflow counts) exactly; the f64 path's
-per-window deltas to 1e-12 and its totdk to 1e-9 relative.
+per-window deltas to 1e-12 and its totdk to 1e-9 relative; the port's
+f64 reduction itself is held to the in-order sum bit for bit.
 """
 
 import numpy as np
@@ -175,13 +176,17 @@ def test_boundary_reduce_matches_jax(dtype):
     pm, pd = pds._boundary_reduce(_t(missing), _t(dk),
                                   _t(b_start).long(), _t(b_end).long())
     np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
-    want = np.asarray([dk[a:b].sum() for a, b in zip(b_start, b_end)])
+    # getTotdK's order: each path's values added one at a time from 0.0
+    want = np.asarray([np.add.accumulate(dk[a:b])[-1] if b > a else 0
+                       for a, b in zip(b_start, b_end)], dk.dtype)
     if dtype == "int64":
         np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
         np.testing.assert_array_equal(pd.numpy(), want)
     else:
-        np.testing.assert_allclose(pd.numpy(), np.asarray(jd), **F64)
-        np.testing.assert_allclose(pd.numpy(), want, rtol=1e-9, atol=1e-9)
+        # the port sums f64 in path order, bit for bit; the JAX package's
+        # two-level prefix difference is off by ~1e-9 relative on paths
+        # whose total is small beside the prefix (a deliberate divergence)
+        assert pd.numpy().tobytes() == want.tobytes()
 
 
 def test_pack_inputs_matches_jax(tmp_path):

@@ -1,6 +1,6 @@
 """Card-only tests of the torch port (marker ``gpu``): each CUDA kernel
 (union_join, sorted_join, window_join, and the earlier binary search and
-stream designs) vs its plain version on random tables, on the windowed
+stream designs, path_sum) vs its plain version on random tables, on the windowed
 joins' edge cases and on window tables whose keys repeat, -hist,
 -completeness, -dump and the variant modes on CUDA vs on the CPU
 (-completeness also through a many-times-wrapped pinned ring), the
@@ -216,8 +216,8 @@ def test_variant_modes_cuda_match_cpu(cuda, tmp_path, monkeypatch):
 def test_device_scorer_cuda_matches_cpu(cuda, with_prob, tmp_path):
     """The fused scorer on CUDA vs on the CPU over heavy-cluster blocks
     split into several spans: num_m exactly, the integer totdk exactly,
-    the f64 totdk (sums in another order on CUDA) to 1e-9 relative; the
-    union join ran as the kernel."""
+    the f64 totdk (in path order, the path-sum kernel on CUDA) bit for
+    bit; the union join ran as the kernel."""
     import chip_smoke as cs
     from merfin_tpu_torch.io.mkdb import KmerDB
     from merfin_tpu_torch.io.prob import load_prob_table
@@ -267,11 +267,35 @@ def test_device_scorer_cuda_matches_cpu(cuda, with_prob, tmp_path):
     for key in (("cuda", True), ("cuda", False)):
         np.testing.assert_array_equal(out[key][0], out["cpu", True][0])
         if with_prob:
-            np.testing.assert_allclose(out[key][1], out["cpu", True][1],
-                                       rtol=1e-9, atol=0)
+            assert out[key][1].tobytes() == out["cpu", True][1].tobytes()
         else:
             assert out[key][1].dtype == np.int64
             np.testing.assert_array_equal(out[key][1], out["cpu", True][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paths", [1, 1000, 70_000])
+def test_path_sum_kernel_matches_cpu_order(cuda, paths):
+    """csrc/path_sum.cu vs the plain version (getTotdK's order) bit for
+    bit: paths of 0 to 400 windows, values of mixed magnitudes, ties."""
+    from merfin_tpu_torch.ops.path_sum import path_sum_kernel, path_sums
+
+    rng = np.random.default_rng(paths)
+    lens = rng.integers(0, 400, paths)
+    lens[::7] = 21
+    gaps = rng.integers(0, 30, paths)
+    b_start = np.cumsum(gaps + np.concatenate([[0], lens[:-1]]))
+    b_end = b_start + lens
+    n = int(b_end[-1]) + 5
+    vals = rng.normal(size=n) * rng.choice([1e-3, 1.0, 1e4], size=n)
+    if paths > 7:                          # paths 0 and 7 tie
+        vals[b_start[7]: b_end[7]] = vals[b_start[0]: b_end[0]]
+    t = [torch.from_numpy(x) for x in (vals, b_start, b_end)]
+    want = path_sums(*t).numpy()
+    before = path_sum_kernel.launches
+    got = path_sums(*(x.to(cuda) for x in t)).cpu().numpy()
+    assert path_sum_kernel.launches == before + 1
+    assert got.tobytes() == want.tobytes()
 
 
 @pytest.mark.gpu

@@ -173,7 +173,7 @@ def test_chip_smoke_phases_on_cpu(tmp_path, monkeypatch):
 def _smoke_phases_on_cpu(tmp_path):
     cs.check_small_worlds(str(tmp_path), 0, 30_000, 40_000, "cpu")
     cs.check_small_modes(str(tmp_path), 0, 30_000, "cpu")
-    cs.check_small_variants(str(tmp_path), 0, 30_000, "cpu")
+    assert cs.check_small_variants(str(tmp_path), 0, 30_000, "cpu") == 0
     w = cs.full_world(str(tmp_path / "full"), 0, 1.0, 1 << 18, "cpu")
     assert w["n_seqs"] > 4 and w["kmissing"] > 0
     assert cs._run_full(w, str(tmp_path / "full" / "run")) == 0
@@ -185,6 +185,11 @@ def _smoke_phases_on_cpu(tmp_path):
     q, packed, n_paths, n_win = cs.heavy_span(w, plan, 1 << 16)
     assert n_paths == 576 and q.size == 1 << 16 and (np.diff(q) >= 0).all()
     assert packed[0] == 1 << 16 and n_win <= packed[0]
+    spans = cs.path_sum_spans(w, plan, np.random.default_rng(0), 1 << 16)
+    assert [s[0] for s in spans] == ["heavy span", "light span"]
+    assert all(v.size == 1 << 16 and e.max() <= v.size and (e >= b).all()
+               for _, v, b, e in spans)
+    assert cs.check_path_sum(spans, 0, "cpu") == (0.0, {})
     assert cs._run_variants_full(w, plan, str(tmp_path / "full" / "v"),
                                  threads=3) == 0
     assert cs._run_count_full(w, str(tmp_path / "full" / "n"), 0,

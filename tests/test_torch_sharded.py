@@ -417,8 +417,9 @@ def _jax_cli(argv, cwd, out):
                                   "filter", "better", "polish_host"])
 def test_cli_mesh_matches_jax_and_single(mode, cli_world, tmp_path):
     """-mesh 2x4 through the port's CLI: output bytes and stderr equal to
-    the JAX CLI's -mesh 2x4 run, output bytes equal to the port's
-    single-device run, and the exactness counters equal."""
+    the JAX CLI's -mesh 2x4 run (but for the line naming the fused scorer,
+    which the port takes for -polish -prob), output bytes equal to the
+    port's single-device run, and the exactness counters equal."""
     argv, _ = cli_world
     base = mode.split("_")[0]
     if base in ("hist", "dump", "completeness"):
@@ -439,6 +440,11 @@ def test_cli_mesh_matches_jax_and_single(mode, cli_world, tmp_path):
     jerr, jcounters = _jax_cli(mesh, tmp_path / "jax", out)
     jout = cs._read_output(str(tmp_path / "jax"), output)
     assert got == jout == one
+    if mode == "polish" and "-prob" in run:
+        # -polish -prob: the port's fused scorer, the JAX CLI's host one
+        fused = "-- Using fused device scoring (-devscore).\n"
+        assert fused in err and fused not in jerr
+        err = err.replace(fused, "", 1)
     assert err == jerr
     assert "-- Sharding tables over a 2x4 device mesh." in err
     assert counters == jcounters
