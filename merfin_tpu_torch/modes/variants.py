@@ -11,10 +11,13 @@ headers.
 
 Two scoring paths:
   * the fused device scorer (``variants/device_score.py``): array-native
-    PathBlocks built up to four clusters ahead on a thread (heavy clusters on a
-    spawned process pool), budgeted batches dispatched as they fill, up
-    to ``_MAX_INFLIGHT`` batches in flight, selection as each batch is
-    fetched;
+    PathBlocks built on one build thread, up to ``_LOOKAHEAD`` build
+    units ahead: each run of up to ``_BATCH_CLUSTERS`` consecutive light
+    clusters (fewer than ``_POOL_MIN_PATHS`` estimated paths) as one
+    block, each heavy cluster alone (from -threads 3 on a spawned
+    process pool); budgeted batches of units dispatched as they fill, up
+    to ``_MAX_INFLIGHT`` batches in flight, selection cluster by cluster
+    as each batch is fetched;
   * the host scorer (``merfin_tpu_torch/variants/score.py``), whose table
     lookups come from the caller (the CLI gives it the union join):
     VarPath lists, budgeted batches, -debug.
@@ -48,7 +51,8 @@ from merfin_tpu_torch.variants.score import (PathScore, dispatch_blocks,
                                              fetch_blocks, score_path_groups)
 
 MODES = ("filter", "polish", "better", "strict", "loose")
-_LOOKAHEAD = 4       # clusters built ahead of the fused pipeline
+_LOOKAHEAD = 4       # build units (a heavy cluster, a light run) ahead
+_BATCH_CLUSTERS = 512   # clusters of a light run built as one block
 _MAX_INFLIGHT = 8    # dispatched batches not yet fetched
 _U32 = 1 << 32
 
@@ -110,7 +114,9 @@ def prepare_cluster(
     return r[0], r[1], _enumerate_task(r[2])
 
 
-_POOL_MIN_PATHS = 64   # ship a cluster to a worker only past this size
+# a cluster of fewer estimated paths is light: built in a run with its
+# neighbours; heavier ones are built alone, on the pool from -threads 3
+_POOL_MIN_PATHS = 64
 
 
 def _est_paths(haps) -> int:
@@ -166,19 +172,25 @@ def _enumerate_task(args):
 
 
 def _enumerate_block_task(args):
-    """Worker task for the fused-scorer path: the array-native
-    enumeration (variants/enumerate_fast.py — no per-path Python
-    objects; ~15x the scalar traverse at comb=15 scale) builds the
-    PathBlock directly, so the stream assembly and adjust-plane build
-    parallelize across clusters and the result pickles as numpy
+    """Build task for the fused-scorer path: ``(enum_args, k)`` of one
+    cluster, or ``([enum_args or None, ...], k)`` of a run of light
+    clusters.  The array-native enumeration (variants/enumerate_fast.py
+    — no per-path Python objects; ~15x the scalar traverse at comb=15
+    scale) builds the PathBlock directly, a run of clusters as one block
+    (``build_path_blocks_batch``), and the result pickles as numpy
     buffers."""
     if args is None:
         return None
     enum_args, k = args
-    from merfin_tpu_torch.variants.enumerate_fast import build_path_block_fast
+    from merfin_tpu_torch.variants import enumerate_fast as ef
 
     with span("variants.enumerate") as h:
-        block = build_path_block_fast(*enum_args, k)
+        if isinstance(enum_args, list):
+            block = ef.build_path_blocks_batch(enum_args, k)
+            h.count("clusters", sum(a is not None for a in enum_args))
+        else:
+            block = ef.build_path_block_fast(*enum_args, k)
+            h.count("clusters", 1)
         h.count("paths", block.nis.shape[0])
     return block
 
@@ -259,13 +271,35 @@ class DebugWriter:
         self.file.close()
 
 
-def _score_fused(mode, prepared, task_args, heavy, get_pool, scorer, k,
-                 query_budget):
-    """Fused path for one sequence -> (blocks, scores, selected results)."""
+def _build_units(n: int, heavy: list[int]) -> list[tuple[int, int]]:
+    """A sequence's clusters as build units [lo, hi): each heavy cluster
+    alone, the clusters between them (PANIC-skipped ones included) in
+    runs of up to ``_BATCH_CLUSTERS``."""
+    units = []
+    lo = 0
+    for h in heavy + [n]:
+        units += [(a, min(a + _BATCH_CLUSTERS, h))
+                  for a in range(lo, h, _BATCH_CLUSTERS)]
+        if h < n:
+            units.append((h, h + 1))
+        lo = h + 1
+    return units
+
+
+def _score_fused(mode, prepared, enum_args, heavy, pooled, get_pool, scorer,
+                 k, query_budget):
+    """Fused path for one sequence -> (blocks, scores, selected results):
+    at a cluster's index its PathBlock (None where PANIC-skipped) and its
+    (num_m, totdk).  Each heavy cluster is built alone (on
+    the pool if ``pooled`` holds it, else on the build thread), each run
+    of light ones as one block on the build thread."""
     heavy_set = set(heavy)
+    pooled_set = set(pooled)
     heavy_iter = iter(get_pool().imap(
-        _enumerate_block_task, [task_args[i] for i in heavy])) \
-        if heavy else None
+        _enumerate_block_task, [(enum_args[i], k) for i in pooled])) \
+        if pooled else None
+    units = _build_units(len(prepared), heavy)
+    built: list = [None] * len(units)
     blocks: list = [None] * len(prepared)
     scores: list = [None] * len(prepared)
     selected: dict[int, tuple[str, str]] = {}
@@ -275,9 +309,15 @@ def _score_fused(mode, prepared, task_args, heavy, get_pool, scorer, k,
 
     def submit_more():
         nonlocal nxt
-        while nxt < len(prepared) and len(futs) < _LOOKAHEAD:
-            futs.append(None if nxt in heavy_set else build_ex.submit(
-                carry(_enumerate_block_task), task_args[nxt]))
+        while nxt < len(units) and len(futs) < _LOOKAHEAD:
+            lo, hi = units[nxt]
+            if lo in pooled_set:
+                futs.append(None)
+            else:
+                futs.append(build_ex.submit(
+                    carry(_enumerate_block_task),
+                    (enum_args[lo] if lo in heavy_set
+                     else enum_args[lo:hi], k)))
             nxt += 1
 
     def next_block():
@@ -289,30 +329,35 @@ def _score_fused(mode, prepared, task_args, heavy, get_pool, scorer, k,
         return b
 
     def finish(a, b, tok):
-        scores[a:b] = fetch_blocks(tok, scorer)
         with span("variants.select") as h:
-            for idx in range(a, b):
-                if prepared[idx] is not None:
+            for (lo, hi), blk, (nm, td) in zip(units[a:b], built[a:b],
+                                               fetch_blocks(tok, scorer)):
+                for idx in range(lo, hi):
+                    r = blk.rows(idx - lo)
+                    scores[idx] = (nm[r], td[r])   # empty where skipped
+                    if prepared[idx] is None:
+                        continue
+                    blocks[idx] = blk.cluster(idx - lo)
                     selected[idx] = _select_block_task(
-                        (mode, blocks[idx], scores[idx], prepared[idx][0], k))
+                        (mode, blocks[idx], scores[idx], prepared[idx][0],
+                         k))
                     if mode == "polish" and spans_on():
                         h.count("het_records",
                                 het_records(selected[idx][0]))
-            h.count("clusters", b - a)
+            h.count("clusters", units[b - 1][1] - units[a][0])
 
     pending: collections.deque = collections.deque()
     try:
         i = 0
-        while i < len(prepared):
+        while i < len(units):
             j = i
             budget = 0
-            while j < len(prepared) and (budget == 0 or budget < query_budget):
-                blocks[j] = next_block()
-                if blocks[j] is not None:
-                    budget += int(blocks[j].nis.sum())
+            while j < len(units) and (budget == 0 or budget < query_budget):
+                built[j] = next_block()
+                budget += int(built[j].nis.sum())
                 j += 1
             with span("variants.dispatch"):
-                tok = dispatch_blocks(blocks[i:j], scorer, k)
+                tok = dispatch_blocks(built[i:j], scorer, k)
             pending.append((i, j, tok))
             if len(pending) > _MAX_INFLIGHT:
                 finish(*pending.popleft())
@@ -492,18 +537,16 @@ def run_variants(mode: str, seq_file: SeqFile, vcf: VcfFile, k: int,
                 # small ones the pickle round trip costs more than the work
                 heavy = [i for i, a in enumerate(enum_args)
                          if a is not None
-                         and _est_paths(a[3]) >= _POOL_MIN_PATHS] \
-                    if threads >= min_workers else []
+                         and _est_paths(a[3]) >= _POOL_MIN_PATHS]
+                pooled = heavy if threads >= min_workers else []
 
                 if scorer is not None:
-                    task_args = [(a, k) if a is not None else None
-                                 for a in enum_args]
                     paths_list, all_scores, selected = _score_fused(
-                        mode, prepared, task_args, heavy, get_pool, scorer, k,
-                        query_budget)
+                        mode, prepared, enum_args, heavy, pooled, get_pool,
+                        scorer, k, query_budget)
                 else:
                     paths_list, all_scores, selected = _score_host(
-                        mode, prepared, enum_args, heavy, get_pool, k,
+                        mode, prepared, enum_args, pooled, get_pool, k,
                         lookup_read, lookup_asm, peak, prob_table, threads,
                         query_budget)
 

@@ -103,6 +103,101 @@ def _intervals_to_plane(lo_all: np.ndarray, hi_all: np.ndarray,
     return np.cumsum(d8[:n_win], dtype=np.int8) > 0
 
 
+def _assemble(combined: np.ndarray, p_len: np.ndarray, p_src: np.ndarray,
+              w1: np.ndarray, w2: np.ndarray):
+    """Piece table [P, n_p] (int32 sources into ``combined``, lengths)
+    -> (2-bit codes of every path's pieces in turn, per-path 2x32-bit
+    position-weighted hashes of its bytes)."""
+    from merfin_tpu_torch.native import get_lib
+
+    lib = get_lib()
+    if lib is not None and hasattr(lib, "mt_assemble_paths"):
+        # one C pass (native/fastio.cpp mt_assemble_paths; ~20x the
+        # numpy multi-pass on this host, docs/PERF.md r4)
+        import ctypes
+
+        Pn, n_p = p_len.shape
+        T = int(p_len.sum(dtype=np.int64))
+        codes = np.empty(max(T, 1), np.uint8)
+        hashes = np.empty(max(Pn, 1), np.uint64)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        lib.mt_assemble_paths(
+            combined.ctypes.data_as(u8p),
+            np.ascontiguousarray(p_src).ctypes.data_as(i32p),
+            np.ascontiguousarray(p_len).ctypes.data_as(i32p),
+            Pn, n_p,
+            w1.ctypes.data_as(u32p), w2.ctypes.data_as(u32p),
+            codes.ctypes.data_as(u8p), hashes.ctypes.data_as(u64p))
+        return codes[:T], hashes[:Pn]
+
+    # fallback: src_idx[pos] = pos + (src - piece_start) repeated per
+    # piece; one repeat + in-place add + one gather; same hashes
+    flat_len = p_len.reshape(-1)
+    flat_src = p_src.reshape(-1)
+    T = int(flat_len.sum(dtype=np.int64))
+    # i32 gather indices would silently wrap past 2^31 assembled bytes
+    # (~10M-path clusters); widen on the rare huge block
+    idt = np.int64 if T >= 2**31 else np.int32
+    piece_start = (np.cumsum(flat_len, dtype=np.int64)
+                   - flat_len).astype(idt)
+    src_idx = np.repeat(flat_src.astype(idt) - piece_start, flat_len)
+    src_idx += np.arange(T, dtype=idt)
+    raw = combined[src_idx]
+    plen = p_len.sum(axis=1)
+    st = np.zeros(p_len.shape[0] + 1, np.int64)
+    np.cumsum(plen, out=st[1:])
+    rel = np.repeat((-st[:-1]).astype(idt), plen)
+    rel += np.arange(T, dtype=idt)
+    h1 = np.add.reduceat(w1[rel] * raw, st[:-1])
+    h2 = np.add.reduceat(w2[rel] * raw, st[:-1])
+    hashes = (h1.astype(np.uint64) << np.uint64(32)) | h2
+    return _CODE_TAB[raw], hashes
+
+
+def _first_seen(hashes: np.ndarray, seq_len: np.ndarray, group, combined,
+                p_src: np.ndarray, p_len: np.ndarray):
+    """First-seen dedup by string (varMer.C:38-45) among the paths of
+    each ``group`` (a cluster id a path; None: one cluster): the keep
+    mask, or None when every path stays.  The 64-bit hash with the
+    length mixed in screens (equal strings map equal: sound; distinct
+    keys imply distinct strings); a byte compare confirms inside
+    key-equal runs, taken in path order (collisions keep both, equal
+    bytes drop later)."""
+    mixed = hashes + seq_len.astype(np.uint64) * np.uint64(
+        0x9E3779B97F4A7C15)
+    order = np.argsort(mixed, kind="stable") if group is None \
+        else np.lexsort((mixed, group))
+    km = mixed[order]
+    same = km[1:] == km[:-1]
+    if group is not None:
+        kg = group[order]
+        same &= kg[1:] == kg[:-1]
+    if not same.any():
+        return None
+
+    def row_bytes(r):
+        pieces = [combined[p_src[r, j]: p_src[r, j] + p_len[r, j]]
+                  for j in range(p_len.shape[1])]
+        return np.concatenate(pieces)[: int(seq_len[r])]
+
+    keep = np.ones(seq_len.shape[0], bool)
+    edges = np.flatnonzero(np.diff(np.concatenate(
+        ([False], same, [False])).astype(np.int8)))
+    for a, b in edges.reshape(-1, 2):     # key-equal run order[a: b + 1]
+        kept_bytes = []
+        for r in order[a: b + 1]:
+            by = row_bytes(r)
+            if any(by.size == kb.size and np.array_equal(by, kb)
+                   for kb in kept_bytes):
+                keep[r] = False
+            else:
+                kept_bytes.append(by)
+    return None if keep.all() else keep
+
+
 def build_path_block_fast(template: str, ref_idx_list, ref_len_list,
                           haps, k: int) -> PathBlock:
     """enumerate_paths + build_path_block as one numpy pipeline."""
@@ -214,102 +309,16 @@ def build_path_block_fast(template: str, ref_idx_list, ref_len_list,
     p_src[:, 2 * V + 1] = sep_off + tmpl_len
 
     w1, w2 = _hash_weights(int((seq_len + sep_len).max()))
-
-    def assemble_native(lib, p_len32, p_src32):
-        """One C pass: pieces -> 2-bit codes + per-path hashes
-        (native/fastio.cpp mt_assemble_paths; ~20x the numpy
-        multi-pass on this host, docs/PERF.md r4)."""
-        import ctypes
-
-        Pn = p_len32.shape[0]
-        T = int(p_len32.sum(dtype=np.int64))
-        codes = np.empty(max(T, 1), np.uint8)
-        hashes = np.empty(max(Pn, 1), np.uint64)
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        u32p = ctypes.POINTER(ctypes.c_uint32)
-        u64p = ctypes.POINTER(ctypes.c_uint64)
-        lib.mt_assemble_paths(
-            combined.ctypes.data_as(u8p),
-            np.ascontiguousarray(p_src32).ctypes.data_as(i32p),
-            np.ascontiguousarray(p_len32).ctypes.data_as(i32p),
-            Pn, n_p,
-            w1.ctypes.data_as(u32p), w2.ctypes.data_as(u32p),
-            codes.ctypes.data_as(u8p), hashes.ctypes.data_as(u64p))
-        return codes[:T], hashes[:Pn]
-
-    def assemble_numpy(p_len32, p_src32):
-        """Fallback: src_idx[pos] = pos + (src - piece_start) repeated
-        per piece; one repeat + in-place add + one gather; same hashes."""
-        flat_len = p_len32.reshape(-1)
-        flat_src = p_src32.reshape(-1)
-        T = int(flat_len.sum(dtype=np.int64))
-        # i32 gather indices would silently wrap past 2^31 assembled
-        # bytes (~10M-path clusters); widen on the rare huge block
-        idt = np.int64 if T >= 2**31 else np.int32
-        piece_start = (np.cumsum(flat_len, dtype=np.int64)
-                       - flat_len).astype(idt)
-        src_idx = np.repeat(flat_src.astype(idt) - piece_start, flat_len)
-        src_idx += np.arange(T, dtype=idt)
-        raw = combined[src_idx]
-        plen = p_len32.sum(axis=1)
-        st = np.zeros(p_len32.shape[0] + 1, np.int64)
-        np.cumsum(plen, out=st[1:])
-        rel = np.repeat((-st[:-1]).astype(idt), plen)
-        rel += np.arange(T, dtype=idt)
-        h1 = np.add.reduceat(w1[rel] * raw, st[:-1])
-        h2 = np.add.reduceat(w2[rel] * raw, st[:-1])
-        hashes = (h1.astype(np.uint64) << np.uint64(32)) | h2
-        return _CODE_TAB[raw], hashes
-
-    from merfin_tpu_torch.native import get_lib
-
-    lib = get_lib()
-    native = lib is not None and hasattr(lib, "mt_assemble_paths")
-    assemble = (lambda pl, ps: assemble_native(lib, pl, ps)) if native \
-        else assemble_numpy
-
-    stream, hashes = assemble(p_len, p_src)
+    stream, hashes = _assemble(combined, p_len, p_src, w1, w2)
     starts = np.zeros(P + 1, np.int64)
     np.cumsum(seq_len + sep_len, out=starts[1:])
 
-    # ---- first-seen dedup by string (varMer.C:38-45): 2x32-bit
-    # position-weighted wrap-around hashes + length screen; byte-compare
-    # confirms inside hash-equal groups (collisions keep both; equal
-    # bytes drop later) — sound: distinct hashes imply distinct strings.
-    keep = None
-    if P > 1:
-        # mix the length into the 64-bit hash: equal strings still map
-        # equal (sound); a 1-D unique beats the axis=0 structured path
-        mixed = hashes + seq_len.astype(np.uint64) * np.uint64(
-            0x9E3779B97F4A7C15)
-        _, inv, cnt = np.unique(mixed, return_inverse=True,
-                                return_counts=True)
-        if np.any(cnt > 1):
-            def row_bytes(r):
-                pieces = [combined[p_src[r, j]: p_src[r, j] + p_len[r, j]]
-                          for j in range(n_p)]
-                return np.concatenate(pieces)[: int(seq_len[r])]
-
-            keep = np.ones(P, bool)
-            order = np.argsort(inv, kind="stable")
-            pos = np.cumsum(cnt) - cnt
-            for g in np.flatnonzero(cnt > 1):
-                rows = order[pos[g]: pos[g] + cnt[g]]
-                kept_bytes = []
-                for r in rows:
-                    b = row_bytes(r)
-                    dup = any(b.size == kb.size and np.array_equal(b, kb)
-                              for kb in kept_bytes)
-                    if dup:
-                        keep[r] = False
-                    else:
-                        kept_bytes.append(b)
-
-    if keep is not None and not keep.all():
+    keep = _first_seen(hashes, seq_len, None, combined, p_src, p_len) \
+        if P > 1 else None
+    if keep is not None:
         # rare: rebuild the packed stream from the kept rows only
         sel = np.flatnonzero(keep)
-        stream, _ = assemble(p_len[sel], p_src[sel])
+        stream, _ = _assemble(combined, p_len[sel], p_src[sel], w1, w2)
         gtp = gtp[sel]
         gtp64 = gtp64[sel]
         idx_path = idx_path[sel]
@@ -318,18 +327,183 @@ def build_path_block_fast(template: str, ref_idx_list, ref_len_list,
         P = sel.size
         starts = np.zeros(P + 1, np.int64)
         np.cumsum(seq_len + sep_len, out=starts[1:])
-    n_win = max(0, stream.shape[0] - k + 1)
     lens = seq_len
     nis = np.maximum(0, lens - k + 1)
+    adjust = _adjust_plane(stream, starts, nis, gtp64, idx_path, len_path,
+                           k)
+    return PathBlock(stream, starts, nis, lens,
+                     gtp.astype(np.int16), adjust)
 
-    # adjust plane intervals (score._flat_planes semantics, incl. the
-    # uint32-underflow quirk idxp + 1 >= k)
+
+def _adjust_plane(stream, starts, nis, gtp64, idx_path, len_path,
+                  k: int) -> np.ndarray:
+    """The new-kmer plane over the stream's windows: score._flat_planes
+    semantics, incl. the uint32-underflow quirk idxp + 1 >= k.  A path's
+    intervals stay inside its own windows (hi <= its start + nis)."""
+    n_win = max(0, stream.shape[0] - k + 1)
     ok = (gtp64 > 0) & (idx_path + 1 >= k)
     lo = starts[:-1, None] + np.maximum(0, idx_path + 1 - k)
     hi = starts[:-1, None] + np.minimum(nis[:, None],
                                         idx_path + len_path + k)
     ok &= lo < hi
-    adjust = _intervals_to_plane(lo[ok], hi[ok], n_win)
+    return _intervals_to_plane(lo[ok], hi[ok], n_win)
 
-    return PathBlock(stream, starts, nis, lens,
-                     gtp.astype(np.int16), adjust)
+
+def build_path_blocks_batch(args_list, k: int) -> PathBlock:
+    """build_path_block_fast over a run of clusters as one array program.
+
+    ``args_list`` holds each cluster's (template, ref_idx, ref_len,
+    haps), or None for a cluster with no paths (a PANIC-skipped one).
+    Cluster i's paths are rows ``cl_off[i]:cl_off[i + 1]``, in its own
+    DFS order, and its variants the first ``n_var[i]`` columns of
+    ``gtp``; ``block.cluster(i)`` equals build_path_block_fast's block of
+    it array for array.  Clusters are padded to the run's most variants
+    with variants no path applies (one allele, the REF), and each path
+    carries its cluster id through the same closed forms; the stream is
+    every cluster's in turn, so it concatenates as single blocks do."""
+    C = len(args_list)
+    live_c = [c for c, a in enumerate(args_list) if a is not None]
+    live = [args_list[c] for c in live_c]
+    n_var = np.zeros(C, np.int64)
+    n_var[live_c] = [len(a[1]) for a in live]
+    Vx = int(n_var.max()) if C else 0
+    sep_len = max(0, k - 1)
+    empty = PathBlock(np.zeros(0, np.uint8), np.zeros(1, np.int64),
+                      np.zeros(0, np.int64), np.zeros(0, np.int64),
+                      np.zeros((0, Vx), np.int16), np.zeros(0, bool),
+                      np.zeros(C + 1, np.int64), n_var)
+    if Vx == 0:
+        return empty
+
+    # flat per-variant and per-ALT tables (a variant's alleles: REF, then
+    # the ALTs; only ALTs are ever applied)
+    haps = [h for a in live for h in a[3]]
+    nv = len(haps)
+    idx_f = np.fromiter((i for a in live for i in a[1]), np.int64, count=nv)
+    len_f = np.fromiter((n for a in live for n in a[2]), np.int64, count=nv)
+    n_alleles = np.fromiter(map(len, haps), np.int64, count=nv)
+    n_alts = np.maximum(n_alleles - 1, 0)
+    alts = [s for h in haps for s in h[1:]]
+    alt_len = np.zeros(len(alts) + 1, np.int64)   # + a pad for gathers
+    alt_len[:-1] = np.fromiter(map(len, alts), np.int64, count=len(alts))
+
+    # one byte array: every template, then every ALT, then a separator
+    templates = [a[0] for a in live]
+    t_len = np.fromiter(map(len, templates), np.int64, count=len(live))
+    tmpl_len = np.zeros(C, np.int64)
+    tmpl_len[live_c] = t_len
+    tmpl_off = np.zeros(C, np.int64)
+    tmpl_off[live_c] = np.cumsum(t_len) - t_len
+    tmpl_all = "".join(templates)
+    alt_all = "".join(alts)
+    combined = np.frombuffer(
+        (tmpl_all + alt_all + "N" * sep_len).encode("ascii"), np.uint8)
+    alt_off = np.zeros(len(alts) + 1, np.int64)
+    alt_off[:-1] = len(tmpl_all) + np.cumsum(alt_len[:-1]) - alt_len[:-1]
+    sep_off = len(tmpl_all) + len(alt_all)
+
+    # [C, Vx] tables; a pad variant: index 0, length 0, one allele (the
+    # REF), skip end itself
+    c_of = np.repeat(np.arange(C), n_var)          # cluster of a variant
+    v_of = _ranges_from_counts(n_var)
+    var_off = np.cumsum(n_var) - n_var
+
+    def padded(flat, fill):
+        t = np.empty((C, Vx), np.int64)
+        t[:] = fill
+        t[c_of, v_of] = flat
+        return t
+
+    orig_idx = padded(idx_f, 0)
+    orig_len = padded(len_f, 0)
+    n_al = padded(n_alleles, 1)
+    a_base = padded(np.cumsum(n_alts) - n_alts, 0)
+
+    # skip end e[v] as build_path_block_fast's searchsorted, every
+    # cluster in one call over cluster-offset keys (each cluster's
+    # orig_idx sorted, as a VCF's clusters are); else cluster by cluster
+    span_f = idx_f + len_f
+    stride = 1 << 34
+    key = c_of * stride + idx_f
+    if (idx_f.min() >= 0 and span_f.max() < stride
+            and np.all(key[1:] >= key[:-1])):
+        e_f = np.searchsorted(key, c_of * stride + span_f, side="left") \
+            - 1 - var_off[c_of]
+    else:
+        e_f = np.concatenate([
+            np.searchsorted(idx_f[o: o + n], span_f[o: o + n], side="left")
+            - 1 for o, n in zip(var_off, n_var) if n])
+    e = padded(np.maximum(e_f, v_of), np.arange(Vx))
+
+    # ---- frontier expansion, every cluster's rows in cluster order
+    cid = np.flatnonzero(n_var > 0)
+    gtp = np.zeros((cid.size, 0), np.int16)
+    force = np.full(cid.size, -1, np.int64)
+    for v in range(Vx):
+        counts = np.where(force >= v, 1, n_al[cid, v])
+        rep = np.repeat(np.arange(gtp.shape[0]), counts)
+        col = _ranges_from_counts(counts).astype(np.int16)
+        gtp = np.concatenate([gtp[rep], col[:, None]], axis=1)
+        force = force[rep]
+        cid = cid[rep]
+        force = np.where(col > 0, np.maximum(force, e[cid, v]), force)
+    P = gtp.shape[0]
+    if P == 0:
+        return empty
+
+    gtp64 = gtp.astype(np.int64)
+    applied = gtp > 0
+    alt_i = np.where(applied, a_base[cid] + gtp64 - 1, len(alts))
+    o_idx, o_len = orig_idx[cid], orig_len[cid]
+    chosen_len = np.where(applied, alt_len[alt_i], o_len)
+    dv = np.where(applied, chosen_len - o_len, 0)
+
+    # idx_path: shifts land past each applied variant's skip range
+    M = np.zeros((P, Vx + 1), np.int64)
+    rows = np.arange(P)
+    e_r = e[cid] + 1
+    for v in range(Vx):
+        M[rows, e_r[:, v]] += dv[:, v]
+    idx_path = o_idx + np.cumsum(M, axis=1)[:, :Vx]
+    len_path = chosen_len
+    t_len = tmpl_len[cid]
+    seq_len = t_len + dv.sum(axis=1)
+
+    # ---- piece table, as build_path_block_fast's, sources into combined
+    ends = np.where(applied, o_idx + o_len, 0)
+    prev_end = np.maximum.accumulate(
+        np.concatenate([np.zeros((P, 1), np.int64), ends], axis=1), axis=1)
+    gap_src = prev_end[:, :Vx]
+    t_off = tmpl_off[cid][:, None]
+    n_p = 2 * Vx + 2
+    p_len = np.empty((P, n_p), np.int32)
+    p_src = np.empty((P, n_p), np.int32)
+    p_len[:, 0:2 * Vx:2] = np.where(applied, o_idx - gap_src, 0)
+    p_src[:, 0:2 * Vx:2] = np.where(applied, gap_src + t_off, 0)
+    p_len[:, 1:2 * Vx:2] = np.where(applied, chosen_len, 0)
+    p_src[:, 1:2 * Vx:2] = np.where(applied, alt_off[alt_i], 0)
+    p_len[:, 2 * Vx] = t_len - prev_end[:, Vx]
+    p_src[:, 2 * Vx] = prev_end[:, Vx] + t_off[:, 0]
+    p_len[:, 2 * Vx + 1] = sep_len
+    p_src[:, 2 * Vx + 1] = sep_off
+
+    w1, w2 = _hash_weights(int((seq_len + sep_len).max()))
+    stream, hashes = _assemble(combined, p_len, p_src, w1, w2)
+    keep = _first_seen(hashes, seq_len, cid, combined, p_src, p_len) \
+        if P > 1 else None
+    if keep is not None:
+        sel = np.flatnonzero(keep)
+        stream, _ = _assemble(combined, p_len[sel], p_src[sel], w1, w2)
+        gtp, gtp64, cid = gtp[sel], gtp64[sel], cid[sel]
+        idx_path, len_path, seq_len = idx_path[sel], len_path[sel], \
+            seq_len[sel]
+        P = sel.size
+    starts = np.zeros(P + 1, np.int64)
+    np.cumsum(seq_len + sep_len, out=starts[1:])
+    cl_off = np.zeros(C + 1, np.int64)
+    np.cumsum(np.bincount(cid, minlength=C), out=cl_off[1:])
+    nis = np.maximum(0, seq_len - k + 1)
+    adjust = _adjust_plane(stream, starts, nis, gtp64, idx_path, len_path,
+                           k)
+    return PathBlock(stream, starts, nis, seq_len, gtp.astype(np.int16),
+                     adjust, cl_off, n_var)

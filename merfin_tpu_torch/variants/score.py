@@ -80,6 +80,34 @@ class PathBlock:
     lens: np.ndarray     # int64 [P] sequence length per path
     gtp: np.ndarray      # int16 [P, n_var] allele index per variant
     adjust: np.ndarray   # bool [n_win] new-kmer asmK+1 plane
+    # a run of clusters built as one block (enumerate_fast.
+    # build_path_blocks_batch): cluster i's paths are rows
+    # cl_off[i]:cl_off[i + 1], its variants gtp's first n_var[i] columns;
+    # None for a block of one cluster
+    cl_off: np.ndarray | None = None
+    n_var: np.ndarray | None = None
+
+    def rows(self, i: int) -> slice:
+        """Cluster i's paths (rows of nis, lens, gtp and the scores)."""
+        if self.cl_off is None:
+            return slice(0, self.nis.shape[0])
+        return slice(int(self.cl_off[i]), int(self.cl_off[i + 1]))
+
+    def cluster(self, i: int) -> "PathBlock":
+        """Cluster i's own block, as views: the block itself for one
+        cluster."""
+        if self.cl_off is None:
+            return self
+        r = self.rows(i)
+        a, b = r.start, r.stop
+        s0, s1 = int(self.starts[a]), int(self.starts[b])
+        # every path ends with k - 1 separators
+        sep = int(self.starts[a + 1] - s0 - self.lens[a]) if b > a else 0
+        n_win = max(0, s1 - s0 - sep)
+        return PathBlock(self.stream[s0:s1], self.starts[a: b + 1] - s0,
+                         self.nis[r], self.lens[r],
+                         self.gtp[r, : int(self.n_var[i])],
+                         self.adjust[s0: s0 + n_win])
 
 
 def build_path_block(paths: list[VarPath], k: int) -> PathBlock:

@@ -396,3 +396,110 @@ def test_scatter_polish_tool_matches_one_run(tmp_path, monkeypatch):
     assert split(got) == split(want) and cs.vcf_records(want) > 0
     for i in range(2):      # both stripes ran (chrL's records are shard 0's)
         assert (tmp_path / "port" / f"sg.shard{i}.polish.vcf").exists()
+
+
+def light_run_world() -> dict:
+    """Two scaffolds of light clusters (fixes, spurious SNPs, 1/2 sites,
+    deletions, insertions, 0/1 and ./. calls), with a heavy cluster of 7
+    SNPs (128 paths) and a cluster of 9 variants (PANIC-skipped at -comb
+    8) inside the first scaffold's runs; reads on a coverage ladder and
+    a -prob table, as parity_world's."""
+    rng = np.random.default_rng(18)
+    k = 21
+    true = [cs._dna(rng, 9_000), cs._dna(rng, 3_000)]
+    asm = [bytearray(s.encode()) for s in true]
+    rows = []
+    kinds = ("fix", "snp", "multi", "del", "ins", "het", "fix", "none")
+    for si, name in enumerate(("c1", "c2")):
+        t = true[si]
+        for n, p in enumerate(range(60, len(t) - 60, 110)):
+            if si == 0 and n in (30, 47):
+                step, nv = (6, 7) if n == 30 else (4, 9)
+                for v in range(nv):       # the heavy and the skipped one
+                    q = p + v * step
+                    rows.append((name, q, t[q], cs.ALT_OF[t[q]], "30", "1/1"))
+                continue
+            kind = kinds[n % len(kinds)]
+            b = t[p]
+            if kind == "fix":
+                asm[si][p] = ord(cs.ALT_OF[b])
+                rows.append((name, p, cs.ALT_OF[b], b, "40.7", "1/1"))
+            elif kind == "multi":
+                rows.append((name, p, b, f"{cs.ALT_OF[b]},"
+                             f"{cs.ALT_OF[cs.ALT_OF[b]]}", "17.2", "1/2"))
+            elif kind == "del":
+                rows.append((name, p, t[p: p + 3], b, "12.5", "1/1"))
+            elif kind == "ins":
+                rows.append((name, p, b, b + "G", "8.0", "1/1"))
+            else:
+                rows.append((name, p, b, cs.ALT_OF[b], "21.9",
+                             {"snp": "1/1", "het": "0/1",
+                              "none": "./."}[kind]))
+    reads = list(true)
+    for cov, frac in ((1, 1.0), (2, 0.8), (4, 0.6), (6, 0.4)):
+        reads += [s[: int(len(s) * frac)] for s in true] * cov
+    return dict(k=k, peak=2.0, reads=reads, vcf=rows,
+                scaffolds=[("c1", asm[0].decode()), ("c2", asm[1].decode())],
+                prob="1,0.931\n1,0.871\n2,0.773\n2,0.597\n3,0.401\n")
+
+
+@pytest.mark.parametrize("prob", [False, True])
+@pytest.mark.parametrize("mode", ["polish", "filter"])
+def test_light_runs_built_as_batches_match_host_scorer(mode, prob, tmp_path,
+                                                       monkeypatch):
+    """The fused scorer's runs of light clusters, built as one block each
+    (a run cut at the batch cap, a heavy cluster between runs, a
+    PANIC-skipped cluster inside one), write the host scorer's VCF byte
+    for byte at -threads 1 and 3; the enumeration spans count every
+    cluster that was not skipped, in fewer spans than clusters."""
+    from merfin_tpu_torch.io.fasta import SeqFile
+    from merfin_tpu_torch.io.mkdb import KmerDB
+    from merfin_tpu_torch.io.prob import load_prob_table
+    from merfin_tpu_torch.io.vcf import VcfFile
+    from merfin_tpu_torch.modes import variants as mv
+    from merfin_tpu_torch.table.lookup import build_lookup
+    from merfin_tpu_torch.utils import spans
+    from merfin_tpu_torch.variants.device_score import DeviceScorer
+
+    monkeypatch.setattr(mv, "_BATCH_CLUSTERS", 8)
+    world = light_run_world()
+    argv = cs.materialize(world, str(tmp_path))
+    rdb, adb = KmerDB(argv[4]), KmerDB(argv[6])
+    table = load_prob_table(argv[argv.index("-prob") + 1],
+                            log=io.StringIO()) if prob else None
+    rl, al = build_lookup(rdb, device="cpu"), build_lookup(adb, device="cpu")
+
+    def run(tag, threads, fused):
+        vcf = VcfFile(str(tmp_path / "calls.vcf"), log=io.StringIO())
+        vcf.merge_clusters(21, 15, False, log=io.StringIO())
+        sc = DeviceScorer(rl, al, 21, 2.0, table, max_value=int(
+            rdb.vals.max()), exact_max=True) if fused else None
+        log = io.StringIO()
+        mv.run_variants(mode, SeqFile(argv[2]), vcf, 21, rl.lookup_np,
+                        al.lookup_np, 2.0, table, str(tmp_path / tag),
+                        comb=8, log=log, threads=threads, scorer=sc)
+        name = f"{tag}.{'polish' if mode == 'polish' else 'filter'}.vcf"
+        return (tmp_path / name).read_bytes(), log.getvalue(), vcf
+
+    host, host_log, vcf = run("host", 1, False)
+    n_clusters = sum(len(c) for c in vcf.by_chrom.values())
+    assert n_clusters == 108 and host_log.count("PANIC") == 1
+    for threads in (1, 3):
+        spans.clear()
+        spans.enable()
+        try:
+            fused, log, _ = run(f"fused{threads}", threads, True)
+        finally:
+            spans.disable()
+        assert fused == host and log == host_log
+        names = [s.name for s in spans.records()]
+        counts = [s.counts["clusters"] for s in spans.records()
+                  if s.name == "variants.enumerate"]
+        if threads == 1:      # the heavy cluster alone on the build thread
+            assert sum(counts) == n_clusters - 1
+            assert 1 in counts and "variants.pool_spawn" not in names
+        else:                 # the heavy cluster on the pool (recorder off)
+            assert sum(counts) == n_clusters - 2
+            assert "variants.pool_spawn" in names
+        assert max(counts) == 8 and len(counts) < n_clusters / 4
+    assert cs.vcf_records(host) > 20
