@@ -10,19 +10,14 @@ the variant modes) end to end on the GPU and checks them, phase by phase
   2. build    every kernel library from csrc/ with nvcc for sm_90a, one
               nvcc per source in parallel, with ptxas's register and
               spill lines;
-  3. kernel   each kernel vs its plain PyTorch version, bit-exact, and
-              its earlier design vs the same (the binary search
-              merfin_union_join_bsearch for union_join and sorted_join,
-              the PR 2 stream kernel merfin_window_join_stream for
-              window_join); at each timed shape the median CUDA-event
-              times of plain, kernel, kernel, earlier, earlier, plain in
-              turns, one torch.searchsorted of the same biased queries
-              (library_ms, a yardstick the port never calls), the
-              profiler's device time of kernel, earlier design and
+  3. kernel   each kernel vs its plain PyTorch version, bit-exact; at
+              each timed shape the median CUDA-event times of plain,
+              kernel, kernel, plain in turns, one torch.searchsorted of
+              the same biased queries (library_ms, a yardstick the port
+              never calls), the profiler's device time of kernel and
               yardstick (the time the card was busy, overlapping
               kernels counted once; host launch time excluded) and the
-              bound
-              (join_bytes over 3.35 TB/s).
+              bound (join_bytes over 3.35 TB/s).
               union_join: the full world's union table against one
               -hist dispatch's sorted 2^20-window query stream with
               hits, misses and sentinels (timed), a ragged length, a
@@ -143,9 +138,9 @@ The world is made from --seed with numpy; databases are written with the
 port's KmerDB.create.  The last three stdout lines are a JSON object of
 the kernels (launches in each main path, each run with the counts set
 to 0 just before it, and their sum; max |kernel - plain|; ms, plain_ms,
-bsearch_ms or stream_ms (the earlier design), library_ms, the device_ms
-of each, and bound_ms at the main path's shape, and at every timed shape
-under "shapes"; path_sum's earlier design is two_level_ms), the card's
+library_ms, the device_ms of each, and bound_ms at the main path's
+shape, and at every timed shape under "shapes"; path_sum's earlier
+design is two_level_ms), the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and
 {"ok": true, "device": {...}}.
 
@@ -1061,7 +1056,7 @@ def heavy_span(w: dict, plan: dict, windows: int = 1 << 23):
     the span's _pack_inputs; the cluster's path count; the span's
     window count)."""
     from merfin_tpu_torch.kcore.pack import kmers_from_codes_np
-    from merfin_tpu_torch.variants.enumerate_fast import build_path_block_fast
+    from merfin_tpu_torch.variants.enumerate_fast import build_path_blocks
     from merfin_tpu_torch.variants.device_score import (_pack_inputs,
                                                         split_spans)
 
@@ -1070,9 +1065,9 @@ def heavy_span(w: dict, plan: dict, windows: int = 1 << 23):
     seq = _ACGT[w["asm"][w["starts"][i]: w["starts"][i + 1]]].tobytes().decode()
     lo = cl[0][1] - (k - 1)
     hi = cl[-1][1] + len(cl[-1][2]) + (k - 1)
-    block = build_path_block_fast(seq[lo:hi], [r[1] - lo for r in cl],
-                                  [len(r[2]) for r in cl],
-                                  [r[6] for r in cl], k)
+    block = build_path_blocks([(seq[lo:hi], [r[1] - lo for r in cl],
+                                [len(r[2]) for r in cl],
+                                [r[6] for r in cl])], k)
     i, j, a, b = split_spans(block.starts, block.nis.shape[0], windows)[0]
     fmer, rmer, valid = kmers_from_codes_np(block.stream[a:b], k)
     q = np.full(windows, np.uint64(2**64 - 1))
@@ -1165,10 +1160,9 @@ def join_bytes(keys, q, nv: int) -> int:
     return int(total)
 
 
-# the earlier design of each kernel, kept as a measured entry: its key
-# in the kernels line and its label
-OLD_LABELS = {"bsearch_ms": "binary search", "stream_ms": "PR 2 stream"}
-OLD_LABELS["two_level_ms"] = "two-level prefix"     # path_sum's
+# path_sum's earlier design, kept as a measured entry: its key in the
+# kernels line and its label
+OLD_LABELS = {"two_level_ms": "two-level prefix"}
 
 
 def time_turns(kernel_fn, plain_fn, reps: int, old=None) -> dict:
@@ -1218,18 +1212,17 @@ def device_ms(fn, reps: int = 10) -> float:
     raise AssertionError("no device time in 3 profiler traces")
 
 
-def measure(keys, q, nv: int, reps: int, kernel_fn, plain_fn,
-            old=None) -> dict:
+def measure(keys, q, nv: int, reps: int, kernel_fn, plain_fn) -> dict:
     """time_turns plus the bound (join_bytes over the card's memory
     rate), the library yardstick (one torch.searchsorted of the same
     biased queries into the same biased keys; it yields only the index
     and the port never calls it) and the profiler's device time of the
-    kernel, its earlier design and the yardstick (``*_device_ms``)."""
+    kernel and the yardstick (``*_device_ms``)."""
     import torch
 
     from merfin_tpu_torch.ops.kmer_ops import bias
 
-    out = time_turns(kernel_fn, plain_fn, reps, old)
+    out = time_turns(kernel_fn, plain_fn, reps)
     kb, qb = bias(keys), bias(q)
 
     def library():
@@ -1237,8 +1230,6 @@ def measure(keys, q, nv: int, reps: int, kernel_fn, plain_fn,
 
     out["library_ms"] = _median_ms(library, reps)
     out["device_ms"] = device_ms(kernel_fn)
-    if old:
-        out[old[0].replace("_ms", "_device_ms")] = device_ms(old[1])
     out["library_device_ms"] = device_ms(library)
     out["bytes"] = join_bytes(keys, q, nv)
     out["bound_ms"] = out["bytes"] / H100_BYTES_PER_S * 1e3
@@ -1270,32 +1261,22 @@ def _u32_err(a, b) -> int:
 
 
 def check_kernel(table, q_np: np.ndarray, reps: int):
-    """Kernel vs plain on a union ``table`` for sorted queries, and the
-    earlier binary search vs plain: bit-exact checks, max |diff|, hits,
-    and (reps > 0) measure()'s times."""
+    """Kernel vs plain on a union ``table`` for sorted queries: bit-exact
+    checks, max |diff|, hits, and (reps > 0) measure()'s times."""
     import torch
-
-    from merfin_tpu_torch.ops.union_join import bsearch_join_kernel
-
-    def old():
-        return bsearch_join_kernel(table.keys, table.read_vals,
-                                   table.asm_vals, q)
 
     q = torch.from_numpy(q_np.view(np.int64)).to(table.device)
     kr, ka = table.lookup2_sorted(q)
     pr, pa = table.lookup2_plain(q)
-    br, ba = old()
     torch.cuda.synchronize()
     err = max(_u32_err(kr, pr), _u32_err(ka, pa))
     assert torch.equal(kr, pr) and torch.equal(ka, pa), "kernel != plain"
-    assert torch.equal(br, pr) and torch.equal(ba, pa), "bsearch != plain"
     hits = int(((pr != 0) | (pa != 0)).sum())
     if reps == 0:
         return err, None, hits
     return err, measure(table.keys, q, 2, reps,
                         lambda: table.lookup2_sorted(q),
-                        lambda: table.lookup2_plain(q),
-                        ("bsearch_ms", old)), hits
+                        lambda: table.lookup2_plain(q)), hits
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -1388,27 +1369,13 @@ def indexed_block(lk, q):
 
 
 def check_single(table, q_np: np.ndarray, reps: int):
-    """check_kernel for a single-value table: SortedJoinTable, with the
-    earlier binary search, or the window join's SortJoinTable, with its
-    earlier stream design (merfin_window_join_stream)."""
+    """check_kernel for a single-value table: SortedJoinTable or the
+    window join's SortJoinTable."""
     import torch
-
-    from merfin_tpu_torch.ops.sorted_join import SortedJoinTable
-    from merfin_tpu_torch.ops.union_join import bsearch_join_kernel
-    from merfin_tpu_torch.ops.window_join import stream_window_join_kernel
 
     q = torch.from_numpy(q_np.view(np.int64)).to(table.device)
     got = table.lookup_sorted(q)
     want = table.lookup_plain(q)
-    if type(table) is SortedJoinTable:
-        def old():
-            return bsearch_join_kernel(table.keys, table.vals, None, q)[0]
-        old_entry = ("bsearch_ms", old)
-    else:
-        def old():
-            return stream_window_join_kernel(table.keys, table.vals, q)
-        old_entry = ("stream_ms", old)
-    assert torch.equal(old(), want), f"{OLD_LABELS[old_entry[0]]} != plain"
     torch.cuda.synchronize()
     err = _u32_err(got, want)
     assert torch.equal(got, want), f"{table.kernel.name} kernel != plain"
@@ -1417,7 +1384,7 @@ def check_single(table, q_np: np.ndarray, reps: int):
         return err, None, hits
     return err, measure(table.keys, q, 1, reps,
                         lambda: table.lookup_sorted(q),
-                        lambda: table.lookup_plain(q), old_entry), hits
+                        lambda: table.lookup_plain(q)), hits
 
 
 def path_sum_spans(w: dict, plan: dict, rng, windows: int = 1 << 23):
@@ -1516,12 +1483,11 @@ def kernel_report(errs: list, shapes: dict, main: str) -> dict:
 def check_single_kernels(adb, rdb, rng, reps: int, edges: list,
                          mesh_q: list) -> dict:
     """Phase 3, the single-value kernels (sorted_join, window_join) vs
-    their plain versions, bit-exact (sorted_join's earlier binary search
-    too): the full world's asm table against one 2^22 block of sorted
-    read-DB keys (the completeness dispatch, timed), a v1-ratio table of
-    2^21 keys against 2^20 sorted queries (timed) and at a ragged
-    length, a k=31 table with keys near 2^62, values near 2^32-1, and
-    the ``edges`` of join_edge_cases.  sorted_join also at the mesh
+    their plain versions, bit-exact: the full world's asm table against one
+    2^22 block of sorted read-DB keys (the completeness dispatch, timed), a
+    v1-ratio table of 2^21 keys against 2^20 sorted queries (timed) and at
+    a ragged length, a k=31 table with keys near 2^62, values near 2^32-1,
+    and the ``edges`` of join_edge_cases.  sorted_join also at the mesh
     paths' shapes (timed): the full read-DB and asm tables against each
     (path, label, sorted queries) of ``mesh_q``.  -> {kernel name:
     report}."""
@@ -1577,7 +1543,7 @@ def check_single_kernels(adb, rdb, rng, reps: int, edges: list,
                                             reps if shape else 0)
             errs.append(err)
             msg = (f"  {name}, {label} ({table.n} keys, {q.size} queries, "
-                   f"{hits} hits): bit-exact (earlier design too)")
+                   f"{hits} hits): bit-exact")
             if shape:
                 shapes[shape] = times
                 msg += f"; {fmt_times(times)} (median of {reps}; {smi})"
@@ -1851,7 +1817,7 @@ def main() -> int:
             q = dispatch_queries(w["asm_first"], w["k"], rng, 1 << 20)
             err, hist_t, hits = check_kernel(table, q, args.reps)
             say(f"  -hist dispatch, 2^20 sorted queries ({hits} hits): "
-                f"bit-exact (binary search too); {fmt_times(hist_t)} "
+                f"bit-exact; {fmt_times(hist_t)} "
                 f"(median of {args.reps}; {smi})")
             err2, *_ = check_kernel(table, q[: (1 << 20) - 77], 0)
             say("  ragged length 2^20-77: bit-exact")
@@ -1905,7 +1871,7 @@ def main() -> int:
                 etable = UnionTable(keys, v0, v1, "cuda")
                 errs.append(check_kernel(etable, qe, 0)[0])
                 say(f"  edge: {label} ({etable.n} keys, {qe.size} queries): "
-                    f"bit-exact (binary search too)")
+                    "bit-exact")
                 del etable
             torch.cuda.empty_cache()
             report[union_join_kernel.name] = kernel_report(

@@ -56,10 +56,6 @@
 // leaf line; a sector of each value column) against the ~100 its bound
 // counts, and the two dependent trips of a sparse query (leaf, then
 // values) leave the card short of its memory rate.
-//
-// merfin_union_join_bsearch keeps the earlier design (one thread per
-// query, a lower-bound binary search over the whole key array) for
-// measurement only; no path of the port calls it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -327,42 +323,6 @@ int launch(const void* keys, const void* vals0, const void* vals1,
   return (int)cudaGetLastError();
 }
 
-// ---- the earlier design, kept for measurement: one thread per query, a
-// lower-bound binary search over the whole key array
-template <int NV>
-__global__ void bsearch_kernel(const u64* __restrict__ keys,
-                               const uint32_t* __restrict__ vals0,
-                               const uint32_t* __restrict__ vals1,
-                               long long n, const u64* __restrict__ q,
-                               long long m, uint32_t* __restrict__ out0,
-                               uint32_t* __restrict__ out1) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const u64 x = q[i];
-  uint32_t a = 0, b = 0;
-  if (x != SENTINEL && n > 0) {
-    const long long lo = search_bound<true, false>(keys, 0, n, x);
-    if (lo < n && __ldg(keys + lo) == x) {
-      a = __ldg(vals0 + lo);
-      if (NV == 2) b = __ldg(vals1 + lo);
-    }
-  }
-  out0[i] = a;
-  if (NV == 2) out1[i] = b;
-}
-
-template <int NV>
-int launch_bsearch(const void* keys, const void* vals0, const void* vals1,
-                   long long n, const void* q, long long m, void* out0,
-                   void* out1, void* stream) {
-  if (m <= 0) return (int)cudaGetLastError();
-  const long long blocks = (m + 255) / 256;
-  bsearch_kernel<NV><<<(unsigned int)blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const u64*)keys, (const uint32_t*)vals0, (const uint32_t*)vals1, n,
-      (const u64*)q, m, (uint32_t*)out0, (uint32_t*)out1);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each launch entry returns
@@ -406,19 +366,4 @@ extern "C" int merfin_sorted_join(const void* keys, const void* vals,
                                   void* windows, void* stream) {
   return launch<1>(keys, vals, nullptr, n, fences, q, m, out, nullptr,
                    windows, stream);
-}
-
-// The earlier binary search, with nv = 1 or 2 value columns (vals1 and
-// out1 unused for 1).
-extern "C" int merfin_union_join_bsearch(const void* keys, const void* vals0,
-                                         const void* vals1, long long n,
-                                         const void* q, long long m,
-                                         void* out0, void* out1, int nv,
-                                         void* stream) {
-  if (nv == 1) {
-    return launch_bsearch<1>(keys, vals0, nullptr, n, q, m, out0, nullptr,
-                             stream);
-  }
-  if (nv != 2) return (int)cudaErrorInvalidValue;
-  return launch_bsearch<2>(keys, vals0, vals1, n, q, m, out0, out1, stream);
 }

@@ -65,12 +65,6 @@
 // measurement (scripts/join_tune.py; PERF.md); they can be overridden
 // with -D for measurement, and merfin_window_config reports what was
 // built.
-//
-// merfin_window_join_stream keeps the earlier design (one CTA per 1024
-// queries; two threads binary-search the window's ends while the rest
-// wait; 2048-key tiles loaded and matched without overlap, a binary
-// search and a run loop per query) for measurement only; no path of the
-// port calls it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -428,82 +422,6 @@ window_join_kernel(const u64* __restrict__ keys,
   }
 }
 
-// ---- the earlier design, kept for measurement: one CTA per 1024
-// queries (4 a thread, strided), the window's ends found by two threads
-// while the rest wait, 2048-key tiles loaded, then matched by a binary
-// search and a run loop per query
-constexpr int S_QB = 1024;
-constexpr int S_THREADS = 256;
-constexpr int S_PER_THREAD = S_QB / S_THREADS;
-constexpr int S_TILE = 2048;
-
-__global__ void __launch_bounds__(S_THREADS)
-stream_kernel(const u64* __restrict__ keys,
-              const uint32_t* __restrict__ vals, long long n,
-              const u64* __restrict__ q, long long m,
-              uint32_t* __restrict__ out) {
-  __shared__ u64 s_keys[S_TILE];
-  __shared__ uint32_t s_vals[S_TILE];
-  __shared__ long long s_win[2];
-
-  const long long q0 = (long long)blockIdx.x * S_QB;
-  const int qn = (int)min((long long)S_QB, m - q0);   // ragged last block
-
-  u64 x[S_PER_THREAD];
-  uint32_t acc[S_PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < S_PER_THREAD; ++j) {
-    const int idx = threadIdx.x + j * S_THREADS;
-    x[j] = idx < qn ? q[q0 + idx] : SENTINEL;
-    acc[j] = 0;
-  }
-
-  if (threadIdx.x == 0) {
-    const u64 first = q[q0];
-    s_win[0] =
-        first == SENTINEL ? 0 : search_bound<true, false>(keys, 0, n, first);
-  } else if (threadIdx.x == 32) {
-    int lo = 0, hi = qn;                       // first sentinel of the block
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (q[q0 + mid] != SENTINEL) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    s_win[1] =
-        lo == 0 ? 0 : search_bound<true, true>(keys, 0, n, q[q0 + lo - 1]);
-  }
-  __syncthreads();
-  const long long w0 = s_win[0];
-  const long long w1 = max(s_win[1], w0);      // empty when all sentinels
-
-  for (long long t0 = w0; t0 < w1; t0 += S_TILE) {
-    const int len = (int)min((long long)S_TILE, w1 - t0);
-    for (int j = threadIdx.x; j < len; j += S_THREADS) {
-      s_keys[j] = __ldg(keys + t0 + j);
-      s_vals[j] = __ldg(vals + t0 + j);
-    }
-    __syncthreads();
-    const u64 first = s_keys[0], last = s_keys[len - 1];
-#pragma unroll
-    for (int j = 0; j < S_PER_THREAD; ++j) {
-      const u64 xj = x[j];
-      if (xj == SENTINEL || xj < first || xj > last) continue;
-      int lo = (int)search_bound<false, false>(s_keys, 0, len, xj);
-      for (; lo < len && s_keys[lo] == xj; ++lo) acc[j] += s_vals[lo];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < S_PER_THREAD; ++j) {
-    const int idx = threadIdx.x + j * S_THREADS;
-    if (idx < qn) out[q0 + idx] = acc[j];
-  }
-}
-
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each launch entry returns
@@ -561,17 +479,4 @@ extern "C" int merfin_window_join(const void* keys, const void* pre,
       &cfg, window_join_kernel, (const u64*)keys, (const uint32_t*)pre,
       (const u64*)q, m, n, (const long long*)windows, (uint32_t*)out);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
-}
-
-// The earlier design, on the values themselves.
-extern "C" int merfin_window_join_stream(const void* keys, const void* vals,
-                                         long long n, const void* q,
-                                         long long m, void* out,
-                                         void* stream) {
-  if (m <= 0) return (int)cudaGetLastError();
-  stream_kernel<<<(unsigned int)((m + S_QB - 1) / S_QB), S_THREADS, 0,
-                  (cudaStream_t)stream>>>(
-      (const u64*)keys, (const uint32_t*)vals, n, (const u64*)q, m,
-      (uint32_t*)out);
-  return (int)cudaGetLastError();
 }

@@ -12,12 +12,12 @@ headers.
 Two scoring paths:
   * the fused device scorer (``variants/device_score.py``): array-native
     PathBlocks built on one build thread, up to ``_LOOKAHEAD`` build
-    units ahead: each run of up to ``_BATCH_CLUSTERS`` consecutive light
-    clusters (fewer than ``_POOL_MIN_PATHS`` estimated paths) as one
-    block, each heavy cluster alone (from -threads 3 on a spawned
-    process pool); budgeted batches of units dispatched as they fill, up
-    to ``_MAX_INFLIGHT`` batches in flight, selection cluster by cluster
-    as each batch is fetched;
+    units ahead, by one builder: each run of up to ``_BATCH_CLUSTERS``
+    consecutive light clusters (fewer than ``_POOL_MIN_PATHS`` estimated
+    paths) as one block, each heavy cluster as a run of one (from
+    -threads 3 on a spawned process pool); budgeted batches of units
+    dispatched as they fill, up to ``_MAX_INFLIGHT`` batches in flight,
+    selection cluster by cluster as each batch is fetched;
   * the host scorer (``merfin_tpu_torch/variants/score.py``), whose table
     lookups come from the caller (the CLI gives it the union join):
     VarPath lists, budgeted batches, -debug.
@@ -172,25 +172,20 @@ def _enumerate_task(args):
 
 
 def _enumerate_block_task(args):
-    """Build task for the fused-scorer path: ``(enum_args, k)`` of one
-    cluster, or ``([enum_args or None, ...], k)`` of a run of light
-    clusters.  The array-native enumeration (variants/enumerate_fast.py
-    — no per-path Python objects; ~15x the scalar traverse at comb=15
-    scale) builds the PathBlock directly, a run of clusters as one block
-    (``build_path_blocks_batch``), and the result pickles as numpy
-    buffers."""
+    """Build task for the fused-scorer path: ``([enum_args or None, ...],
+    k)`` of a build unit (a heavy cluster alone, or a run of light ones).
+    The array-native enumeration (variants/enumerate_fast.py — no
+    per-path Python objects; ~15x the scalar traverse at comb=15 scale)
+    builds the unit's PathBlock directly, and the result pickles as
+    numpy buffers."""
     if args is None:
         return None
     enum_args, k = args
-    from merfin_tpu_torch.variants import enumerate_fast as ef
+    from merfin_tpu_torch.variants.enumerate_fast import build_path_blocks
 
     with span("variants.enumerate") as h:
-        if isinstance(enum_args, list):
-            block = ef.build_path_blocks_batch(enum_args, k)
-            h.count("clusters", sum(a is not None for a in enum_args))
-        else:
-            block = ef.build_path_block_fast(*enum_args, k)
-            h.count("clusters", 1)
+        block = build_path_blocks(enum_args, k)
+        h.count("clusters", sum(a is not None for a in enum_args))
         h.count("paths", block.nis.shape[0])
     return block
 
@@ -290,13 +285,12 @@ def _score_fused(mode, prepared, enum_args, heavy, pooled, get_pool, scorer,
                  k, query_budget):
     """Fused path for one sequence -> (blocks, scores, selected results):
     at a cluster's index its PathBlock (None where PANIC-skipped) and its
-    (num_m, totdk).  Each heavy cluster is built alone (on
-    the pool if ``pooled`` holds it, else on the build thread), each run
-    of light ones as one block on the build thread."""
-    heavy_set = set(heavy)
+    (num_m, totdk).  Each build unit (a heavy cluster alone, a run of
+    light ones) is one block, built on the pool if ``pooled`` holds its
+    heavy cluster, else on the build thread."""
     pooled_set = set(pooled)
     heavy_iter = iter(get_pool().imap(
-        _enumerate_block_task, [(enum_args[i], k) for i in pooled])) \
+        _enumerate_block_task, [(enum_args[i:i + 1], k) for i in pooled])) \
         if pooled else None
     units = _build_units(len(prepared), heavy)
     built: list = [None] * len(units)
@@ -314,10 +308,8 @@ def _score_fused(mode, prepared, enum_args, heavy, pooled, get_pool, scorer,
             if lo in pooled_set:
                 futs.append(None)
             else:
-                futs.append(build_ex.submit(
-                    carry(_enumerate_block_task),
-                    (enum_args[lo] if lo in heavy_set
-                     else enum_args[lo:hi], k)))
+                futs.append(build_ex.submit(carry(_enumerate_block_task),
+                                            (enum_args[lo:hi], k)))
             nxt += 1
 
     def next_block():

@@ -156,42 +156,7 @@ class UnionJoinKernel(FencedJoinKernel):
         return out_r, out_a
 
 
-class BsearchJoinKernel(_build.Kernel):
-    """ctypes wrapper of ``csrc/union_join.cu:merfin_union_join_bsearch``,
-    the earlier design (a binary search over the whole key array for each
-    query), kept to measure the windowed design against; no path of the
-    port calls it.  ``vals1=None`` takes the single-value instantiation."""
-
-    name = "union_join_bsearch"
-    lib = "union_join"
-    symbol = "merfin_union_join_bsearch"
-    source = "merfin_tpu_torch/csrc/union_join.cu"
-    argtypes = [_VP, _VP, _VP, ctypes.c_longlong, _VP, ctypes.c_longlong,
-                _VP, _VP, ctypes.c_int, _VP]
-
-    def __call__(self, keys, vals0, vals1, q):
-        specs = [(keys, torch.int64), (vals0, torch.int32), (q, torch.int64)]
-        if vals1 is not None:
-            specs.append((vals1, torch.int32))
-        self.check(q, *specs)
-        n, m = keys.shape[0], q.shape[0]
-        cols = [vals0] if vals1 is None else [vals0, vals1]
-        if any(v.shape[0] != n for v in cols):
-            raise ValueError(f"{self.name}: value columns must match keys")
-        outs = [torch.empty(m, dtype=torch.int32, device=q.device)
-                for _ in cols]
-        if m:
-            self.launch(keys.data_ptr(), vals0.data_ptr(),
-                        None if vals1 is None else vals1.data_ptr(), n,
-                        q.data_ptr(), m, outs[0].data_ptr(),
-                        None if vals1 is None else outs[1].data_ptr(),
-                        len(cols),
-                        _build.raw_stream(q.device))
-        return tuple(outs)
-
-
 union_join_kernel = UnionJoinKernel()
-bsearch_join_kernel = BsearchJoinKernel()
 
 
 class UnionTable:

@@ -95,43 +95,15 @@ class WindowJoinKernel(_build.Kernel):
         return buf[:m]
 
 
-class StreamWindowJoinKernel(_build.Kernel):
-    """ctypes wrapper of ``csrc/window_join.cu:merfin_window_join_stream``,
-    the earlier design (each 1024-query block's window streamed through
-    shared memory without overlap, a binary search and a run loop per
-    query), kept to measure the redesign against; no path of the port
-    calls it."""
-
-    name = "window_join_stream"
-    lib = "window_join"
-    symbol = "merfin_window_join_stream"
-    source = "merfin_tpu_torch/csrc/window_join.cu"
-    argtypes = [_VP, _VP, ctypes.c_longlong, _VP, ctypes.c_longlong, _VP,
-                _VP]
-
-    def __call__(self, keys, vals, q):
-        self.check(q, (keys, torch.int64), (vals, torch.int32),
-                   (q, torch.int64))
-        n, m = keys.shape[0], q.shape[0]
-        if vals.shape[0] != n:
-            raise ValueError(f"{self.name}: values must match keys")
-        out = torch.empty(m, dtype=torch.int32, device=q.device)
-        if m:
-            self.launch(keys.data_ptr(), vals.data_ptr(), n, q.data_ptr(), m,
-                        out.data_ptr(), _build.raw_stream(q.device))
-        return out
-
-
 window_join_kernel = WindowJoinKernel()
-stream_window_join_kernel = StreamWindowJoinKernel()
 
 
 class SortJoinTable(SortedJoinTable):
     """v1's table (``tree()``, ``lookup_sorted``, ``lookup_sorted_with``)
     on the window-join kernel.  Keys sorted; equal keys are allowed and
     their values sum.  Its index is the wrapped prefix column of the
-    values (4 bytes a key, 16 in all: the values stay for ``tree()``, the
-    plain version and the earlier design)."""
+    values (4 bytes a key, 16 in all: the values stay for ``tree()`` and
+    the plain version)."""
 
     kernel = window_join_kernel
     unique_keys = False

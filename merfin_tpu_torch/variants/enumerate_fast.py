@@ -22,10 +22,11 @@ coordinates:
   * first-seen dedup by STRING (varMer.C:38-45): exact — 2x64-bit
     weighted hashes + length screen duplicates, byte-compare confirms.
 
-A comb=15 cluster (165,888 paths, ~24M windows) builds in ~0.3 s of
-numpy instead of ~4.5 s of Python-object churn (docs/PERF.md r4); the
-scalar enumerate.py remains the parity oracle (fuzz-tested equal) and
-serves the host scorer / -debug path.
+build_path_blocks builds a run of clusters as one array program, and a
+heavy cluster as a run of one: a comb=15 cluster (165,888 paths, ~24M
+windows) in well under a second of numpy instead of seconds of
+Python-object churn.  The scalar enumerate.py serves the host scorer /
+-debug path.
 """
 
 from __future__ import annotations
@@ -160,207 +161,57 @@ def _assemble(combined: np.ndarray, p_len: np.ndarray, p_src: np.ndarray,
 def _first_seen(hashes: np.ndarray, seq_len: np.ndarray, group, combined,
                 p_src: np.ndarray, p_len: np.ndarray):
     """First-seen dedup by string (varMer.C:38-45) among the paths of
-    each ``group`` (a cluster id a path; None: one cluster): the keep
-    mask, or None when every path stays.  The 64-bit hash with the
-    length mixed in screens (equal strings map equal: sound; distinct
+    each ``group`` (a cluster id a path, nondecreasing in path order):
+    the keep mask, or None when every path stays.  The 64-bit hash with
+    the length mixed in screens (equal strings map equal: sound; distinct
     keys imply distinct strings); a byte compare confirms inside
-    key-equal runs, taken in path order (collisions keep both, equal
-    bytes drop later)."""
+    key-equal runs of one group, taken in path order (collisions keep
+    both, equal bytes drop later).  The stable sort keeps each key-equal
+    run in path order, so a group's paths in it sit together."""
     mixed = hashes + seq_len.astype(np.uint64) * np.uint64(
         0x9E3779B97F4A7C15)
-    order = np.argsort(mixed, kind="stable") if group is None \
-        else np.lexsort((mixed, group))
+    order = np.argsort(mixed, kind="stable")
     km = mixed[order]
-    same = km[1:] == km[:-1]
-    if group is not None:
-        kg = group[order]
-        same &= kg[1:] == kg[:-1]
+    kg = group[order]
+    same = (km[1:] == km[:-1]) & (kg[1:] == kg[:-1])
     if not same.any():
         return None
 
+    cb = combined.tobytes()
+
     def row_bytes(r):
-        pieces = [combined[p_src[r, j]: p_src[r, j] + p_len[r, j]]
-                  for j in range(p_len.shape[1])]
-        return np.concatenate(pieces)[: int(seq_len[r])]
+        return b"".join(cb[s: s + n] for s, n in zip(
+            p_src[r].tolist(), p_len[r].tolist()))[: int(seq_len[r])]
 
     keep = np.ones(seq_len.shape[0], bool)
     edges = np.flatnonzero(np.diff(np.concatenate(
         ([False], same, [False])).astype(np.int8)))
     for a, b in edges.reshape(-1, 2):     # key-equal run order[a: b + 1]
-        kept_bytes = []
+        kept = set()
         for r in order[a: b + 1]:
             by = row_bytes(r)
-            if any(by.size == kb.size and np.array_equal(by, kb)
-                   for kb in kept_bytes):
+            if by in kept:
                 keep[r] = False
             else:
-                kept_bytes.append(by)
+                kept.add(by)
     return None if keep.all() else keep
 
 
-def build_path_block_fast(template: str, ref_idx_list, ref_len_list,
-                          haps, k: int) -> PathBlock:
-    """enumerate_paths + build_path_block as one numpy pipeline."""
-    V = len(ref_idx_list)
-    empty = PathBlock(np.zeros(0, np.uint8), np.zeros(1, np.int64),
-                      np.zeros(0, np.int64), np.zeros(0, np.int64),
-                      np.zeros((0, V), np.int16), np.zeros(0, bool))
-    if V == 0:
-        return empty
-
-    orig_idx = np.asarray(ref_idx_list, np.int64)
-    orig_len = np.asarray(ref_len_list, np.int64)
-    # a ./.-style record iterates zero alleles: its branches die in the
-    # frontier expansion below — UNLESS it is force-skipped (the DFS
-    # never iterates skipped variants), exactly like the reference
-    n_alleles = np.asarray([len(h) for h in haps], np.int64)
-
-    # skip end e[v]: last i > v with orig_idx[i] < orig_idx[v] + orig_len[v]
-    span_end = orig_idx + orig_len
-    e = np.searchsorted(orig_idx, span_end, side="left") - 1
-    e = np.maximum(e, np.arange(V))
-
-    # per-variant allele length tables (lens[v][0] = REF len)
-    max_a = max(1, int(n_alleles.max()))
-    lens_tab = np.zeros((V, max_a), np.int64)
-    for v in range(V):
-        lens_tab[v, 0] = orig_len[v]
-        for a in range(1, len(haps[v])):
-            lens_tab[v, a] = len(haps[v][a])
-
-    # ---- frontier expansion: valid gt rows in DFS (lexicographic) order
-    gtp = np.zeros((1, 0), np.int16)
-    force = np.full(1, -1, np.int64)     # max skip-end of applied so far
-    for v in range(V):
-        forced = force >= v
-        counts = np.where(forced, 1, n_alleles[v])
-        rep = np.repeat(np.arange(gtp.shape[0]), counts)
-        col = _ranges_from_counts(counts).astype(np.int16)
-        gtp = np.concatenate([gtp[rep], col[:, None]], axis=1)
-        force = force[rep]
-        applied = col > 0
-        force = np.where(applied, np.maximum(force, e[v]), force)
-    P = gtp.shape[0]
-    if P == 0:
-        return empty
-
-    gtp64 = gtp.astype(np.int64)
-    chosen_len = lens_tab[np.arange(V)[None, :], gtp64]       # [P, V]
-    applied = gtp > 0
-    dv = np.where(applied, chosen_len - orig_len[None, :], 0)  # deltas
-
-    # idx_path: shifts land past each applied variant's skip range
-    M = np.zeros((P, V + 1), np.int64)
-    for v in range(V):
-        tgt = int(e[v]) + 1
-        if tgt <= V:
-            M[:, tgt] += dv[:, v]
-    idx_path = orig_idx[None, :] + np.cumsum(M, axis=1)[:, :V]
-    len_path = chosen_len
-
-    tmpl_len = len(template)
-    seq_len = tmpl_len + dv.sum(axis=1)
-
-    # ---- string assembly: per path, pieces = for each APPLIED v a
-    # template gap [prev_applied_end, orig_idx[v]) + the allele bytes,
-    # then the template tail; separators (k-1 'N') close every path.
-    tmpl_b = np.frombuffer(template.encode("ascii"), np.uint8)
-    pool_parts = []
-    pool_off = np.zeros((V, max_a), np.int64)
-    off = 0
-    for v in range(V):
-        for a in range(len(haps[v])):
-            s = haps[v][a]
-            pool_off[v, a] = off
-            pool_parts.append(s)
-            off += len(s)
-    pool_parts.append("N" * max(0, k - 1))
-    sep_off, sep_len = off, max(0, k - 1)
-    pool_b = np.frombuffer("".join(pool_parts).encode("ascii"), np.uint8)
-
-    ends = np.where(applied, span_end[None, :], 0)
-    prev_end = np.maximum.accumulate(
-        np.concatenate([np.zeros((P, 1), np.int64), ends], axis=1),
-        axis=1)                                   # [P, V+1]
-    gap_src = prev_end[:, :V]
-    gap_len = np.where(applied, orig_idx[None, :] - gap_src, 0)
-    gap_src = np.where(applied, gap_src, 0)
-    al_src = pool_off[np.arange(V)[None, :], gtp64]
-    al_len = np.where(applied, chosen_len, 0)
-    al_src = np.where(applied, al_src, 0)
-    tail_src = prev_end[:, V]
-    tail_len = tmpl_len - tail_src
-
-    # piece table [P, 2V+2] row-major: gap0, al0, ..., tail, separator.
-    # Pool sources bias by tmpl_len so ONE combined byte array serves
-    # every gather; everything T-sized stays int32/uint8 (fresh int64
-    # pages made the first cut page-fault-bound, ~4 s per cluster).
-    combined = np.concatenate([tmpl_b, pool_b])
-    n_p = 2 * V + 2
-    p_len = np.empty((P, n_p), np.int32)
-    p_src = np.empty((P, n_p), np.int32)
-    p_len[:, 0:2 * V:2] = gap_len
-    p_src[:, 0:2 * V:2] = gap_src
-    p_len[:, 1:2 * V:2] = al_len
-    p_src[:, 1:2 * V:2] = al_src + tmpl_len
-    p_len[:, 2 * V] = tail_len
-    p_src[:, 2 * V] = tail_src
-    p_len[:, 2 * V + 1] = sep_len
-    p_src[:, 2 * V + 1] = sep_off + tmpl_len
-
-    w1, w2 = _hash_weights(int((seq_len + sep_len).max()))
-    stream, hashes = _assemble(combined, p_len, p_src, w1, w2)
-    starts = np.zeros(P + 1, np.int64)
-    np.cumsum(seq_len + sep_len, out=starts[1:])
-
-    keep = _first_seen(hashes, seq_len, None, combined, p_src, p_len) \
-        if P > 1 else None
-    if keep is not None:
-        # rare: rebuild the packed stream from the kept rows only
-        sel = np.flatnonzero(keep)
-        stream, _ = _assemble(combined, p_len[sel], p_src[sel], w1, w2)
-        gtp = gtp[sel]
-        gtp64 = gtp64[sel]
-        idx_path = idx_path[sel]
-        len_path = len_path[sel]
-        seq_len = seq_len[sel]
-        P = sel.size
-        starts = np.zeros(P + 1, np.int64)
-        np.cumsum(seq_len + sep_len, out=starts[1:])
-    lens = seq_len
-    nis = np.maximum(0, lens - k + 1)
-    adjust = _adjust_plane(stream, starts, nis, gtp64, idx_path, len_path,
-                           k)
-    return PathBlock(stream, starts, nis, lens,
-                     gtp.astype(np.int16), adjust)
-
-
-def _adjust_plane(stream, starts, nis, gtp64, idx_path, len_path,
-                  k: int) -> np.ndarray:
-    """The new-kmer plane over the stream's windows: score._flat_planes
-    semantics, incl. the uint32-underflow quirk idxp + 1 >= k.  A path's
-    intervals stay inside its own windows (hi <= its start + nis)."""
-    n_win = max(0, stream.shape[0] - k + 1)
-    ok = (gtp64 > 0) & (idx_path + 1 >= k)
-    lo = starts[:-1, None] + np.maximum(0, idx_path + 1 - k)
-    hi = starts[:-1, None] + np.minimum(nis[:, None],
-                                        idx_path + len_path + k)
-    ok &= lo < hi
-    return _intervals_to_plane(lo[ok], hi[ok], n_win)
-
-
-def build_path_blocks_batch(args_list, k: int) -> PathBlock:
-    """build_path_block_fast over a run of clusters as one array program.
+def build_path_blocks(args_list, k: int) -> PathBlock:
+    """enumerate_paths + build_path_block over a run of clusters as one
+    numpy pipeline.
 
     ``args_list`` holds each cluster's (template, ref_idx, ref_len,
-    haps), or None for a cluster with no paths (a PANIC-skipped one).
-    Cluster i's paths are rows ``cl_off[i]:cl_off[i + 1]``, in its own
-    DFS order, and its variants the first ``n_var[i]`` columns of
-    ``gtp``; ``block.cluster(i)`` equals build_path_block_fast's block of
-    it array for array.  Clusters are padded to the run's most variants
-    with variants no path applies (one allele, the REF), and each path
-    carries its cluster id through the same closed forms; the stream is
-    every cluster's in turn, so it concatenates as single blocks do."""
+    haps), or None for a cluster with no paths (a PANIC-skipped one); a
+    heavy cluster is a run of one.  Cluster i's paths are rows
+    ``cl_off[i]:cl_off[i + 1]``, in its own DFS order, and its variants
+    the first ``n_var[i]`` columns of ``gtp``; the stream is every
+    cluster's in turn, so it concatenates as blocks do.  Clusters are
+    padded to the run's most variants with a variant no path applies.
+    Every allele of the run has a slot in flat tables (a variant with no
+    alleles keeps one, its REF's; the pads share one), and each path
+    carries its slot at each variant, so the closed forms gather from
+    those tables and no path pays for its cluster's."""
     C = len(args_list)
     live_c = [c for c, a in enumerate(args_list) if a is not None]
     live = [args_list[c] for c in live_c]
@@ -375,17 +226,16 @@ def build_path_blocks_batch(args_list, k: int) -> PathBlock:
     if Vx == 0:
         return empty
 
-    # flat per-variant and per-ALT tables (a variant's alleles: REF, then
-    # the ALTs; only ALTs are ever applied)
+    # flat per-variant tables, every live cluster's variants in turn
     haps = [h for a in live for h in a[3]]
     nv = len(haps)
     idx_f = np.fromiter((i for a in live for i in a[1]), np.int64, count=nv)
     len_f = np.fromiter((n for a in live for n in a[2]), np.int64, count=nv)
+    # a ./.-style record iterates zero alleles: its branches die in the
+    # frontier expansion below -- UNLESS it is force-skipped (the DFS
+    # never iterates skipped variants), exactly like the reference
     n_alleles = np.fromiter(map(len, haps), np.int64, count=nv)
-    n_alts = np.maximum(n_alleles - 1, 0)
     alts = [s for h in haps for s in h[1:]]
-    alt_len = np.zeros(len(alts) + 1, np.int64)   # + a pad for gathers
-    alt_len[:-1] = np.fromiter(map(len, alts), np.int64, count=len(alts))
 
     # one byte array: every template, then every ALT, then a separator
     templates = [a[0] for a in live]
@@ -398,30 +248,15 @@ def build_path_blocks_batch(args_list, k: int) -> PathBlock:
     alt_all = "".join(alts)
     combined = np.frombuffer(
         (tmpl_all + alt_all + "N" * sep_len).encode("ascii"), np.uint8)
-    alt_off = np.zeros(len(alts) + 1, np.int64)
-    alt_off[:-1] = len(tmpl_all) + np.cumsum(alt_len[:-1]) - alt_len[:-1]
     sep_off = len(tmpl_all) + len(alt_all)
 
-    # [C, Vx] tables; a pad variant: index 0, length 0, one allele (the
-    # REF), skip end itself
+    # skip end e[v]: last i > v with orig_idx[i] < orig_idx[v] +
+    # orig_len[v], every cluster in one searchsorted over cluster-offset
+    # keys (each cluster's orig_idx sorted, as a VCF's clusters are);
+    # else cluster by cluster
     c_of = np.repeat(np.arange(C), n_var)          # cluster of a variant
     v_of = _ranges_from_counts(n_var)
     var_off = np.cumsum(n_var) - n_var
-
-    def padded(flat, fill):
-        t = np.empty((C, Vx), np.int64)
-        t[:] = fill
-        t[c_of, v_of] = flat
-        return t
-
-    orig_idx = padded(idx_f, 0)
-    orig_len = padded(len_f, 0)
-    n_al = padded(n_alleles, 1)
-    a_base = padded(np.cumsum(n_alts) - n_alts, 0)
-
-    # skip end e[v] as build_path_block_fast's searchsorted, every
-    # cluster in one call over cluster-offset keys (each cluster's
-    # orig_idx sorted, as a VCF's clusters are); else cluster by cluster
     span_f = idx_f + len_f
     stride = 1 << 34
     key = c_of * stride + idx_f
@@ -433,57 +268,100 @@ def build_path_blocks_batch(args_list, k: int) -> PathBlock:
         e_f = np.concatenate([
             np.searchsorted(idx_f[o: o + n], span_f[o: o + n], side="left")
             - 1 for o, n in zip(var_off, n_var) if n])
-    e = padded(np.maximum(e_f, v_of), np.arange(Vx))
+    e_f = np.maximum(e_f, v_of)
 
-    # ---- frontier expansion, every cluster's rows in cluster order
+    # allele slots: variant j's REF at base_f[j], its ALTs after it in
+    # the order of ``alts``; the last slot is the pads'.  Per slot: the
+    # allele index, the variant's start, the chosen length, its delta,
+    # the applied span's end, the allele piece (length, source), the
+    # column its delta lands in (past the variant's skip range; a REF's
+    # in column Vx, which no path reads) and the skip end it forces
+    slots = np.maximum(n_alleles, 1)
+    base_f = np.cumsum(slots) - slots
+    pad = int(slots.sum())
+    s_var = np.repeat(np.arange(nv), slots)
+    s_al = np.zeros(pad + 1, np.int16)
+    s_al[:pad] = _ranges_from_counts(slots)
+    alt = np.flatnonzero(s_al > 0)
+    a_var = s_var[alt]
+    alt_len = np.fromiter(map(len, alts), np.int64, count=alt.size)
+
+    def table(at_alt=None, fill=0, ref=None):
+        """``at_alt`` at the ALT slots; elsewhere the variant's ``ref``
+        value, or ``fill``."""
+        t = np.full(pad + 1, fill, np.int64)
+        if ref is not None:
+            t[:pad] = ref[s_var]
+        if at_alt is not None:
+            t[alt] = at_alt
+        return t
+
+    s_idx = table(ref=idx_f)
+    s_len = table(alt_len, ref=len_f)
+    s_dv = table(alt_len - len_f[a_var])
+    s_end = table(span_f[a_var])
+    s_plen = table(alt_len)
+    s_src = table(len(tmpl_all) + np.cumsum(alt_len) - alt_len)
+    s_col = table(e_f[a_var] + 1, Vx)
+    s_force = table(e_f[a_var], -1)
+
+    # [Vx, C] tables: a variant's alleles and REF slot; the pads one
+    # allele, the pad slot
+    n_al = np.ones((Vx, C), np.int64)
+    n_al[v_of, c_of] = n_alleles
+    base = np.full((Vx, C), pad, np.int64)
+    base[v_of, c_of] = base_f
+
+    # ---- frontier expansion: each path's slot at each variant, every
+    # cluster's rows in cluster order, in DFS (lexicographic) order
     cid = np.flatnonzero(n_var > 0)
-    gtp = np.zeros((cid.size, 0), np.int16)
-    force = np.full(cid.size, -1, np.int64)
+    g = np.zeros((cid.size, 0), np.intp)
+    force = np.full(cid.size, -1, np.int64)   # max skip end applied so far
     for v in range(Vx):
-        counts = np.where(force >= v, 1, n_al[cid, v])
-        rep = np.repeat(np.arange(gtp.shape[0]), counts)
-        col = _ranges_from_counts(counts).astype(np.int16)
-        gtp = np.concatenate([gtp[rep], col[:, None]], axis=1)
-        force = force[rep]
+        counts = np.where(force >= v, 1, n_al[v][cid])
+        rep = np.repeat(np.arange(g.shape[0]), counts)
         cid = cid[rep]
-        force = np.where(col > 0, np.maximum(force, e[cid, v]), force)
-    P = gtp.shape[0]
+        col = base[v][cid] + _ranges_from_counts(counts)
+        g = np.concatenate([g[rep], col[:, None]], axis=1)
+        force = np.maximum(force[rep], s_force[col])
+    P = g.shape[0]
     if P == 0:
         return empty
 
-    gtp64 = gtp.astype(np.int64)
-    applied = gtp > 0
-    alt_i = np.where(applied, a_base[cid] + gtp64 - 1, len(alts))
-    o_idx, o_len = orig_idx[cid], orig_len[cid]
-    chosen_len = np.where(applied, alt_len[alt_i], o_len)
-    dv = np.where(applied, chosen_len - o_len, 0)
-
-    # idx_path: shifts land past each applied variant's skip range
+    gtp = s_al[g]
+    o_idx = s_idx[g]
+    len_path = s_len[g]
+    dv = s_dv[g]
+    # a path's next applied variant starts past the last one's skip
+    # range, so its applied deltas land in distinct columns: a scatter,
+    # not an add (the rest land, as 0, in column Vx)
     M = np.zeros((P, Vx + 1), np.int64)
-    rows = np.arange(P)
-    e_r = e[cid] + 1
-    for v in range(Vx):
-        M[rows, e_r[:, v]] += dv[:, v]
+    M.reshape(-1)[(np.arange(P) * (Vx + 1))[:, None] + s_col[g]] = dv
     idx_path = o_idx + np.cumsum(M, axis=1)[:, :Vx]
-    len_path = chosen_len
     t_len = tmpl_len[cid]
     seq_len = t_len + dv.sum(axis=1)
 
-    # ---- piece table, as build_path_block_fast's, sources into combined
-    ends = np.where(applied, o_idx + o_len, 0)
-    prev_end = np.maximum.accumulate(
-        np.concatenate([np.zeros((P, 1), np.int64), ends], axis=1), axis=1)
+    # ---- string assembly: per path, pieces = for each APPLIED v a
+    # template gap [prev_applied_end, orig_idx[v]) + the allele bytes,
+    # then the template tail; separators (k-1 'N') close every path.
+    # Piece table [P, 2Vx+2] row-major: gap0, al0, ..., tail, separator,
+    # sources into ``combined``; everything T-sized stays int32/uint8
+    # (fresh int64 pages made the first cut page-fault-bound).  A piece
+    # of length 0 reads nothing, so its source is left as it falls.
+    prev_end = np.zeros((P, Vx + 1), np.int64)
+    np.maximum.accumulate(s_end[g], axis=1, out=prev_end[:, 1:])
+    np.maximum(prev_end[:, 1:], 0, out=prev_end[:, 1:])
     gap_src = prev_end[:, :Vx]
-    t_off = tmpl_off[cid][:, None]
+    t_off = tmpl_off[cid]
     n_p = 2 * Vx + 2
     p_len = np.empty((P, n_p), np.int32)
     p_src = np.empty((P, n_p), np.int32)
-    p_len[:, 0:2 * Vx:2] = np.where(applied, o_idx - gap_src, 0)
-    p_src[:, 0:2 * Vx:2] = np.where(applied, gap_src + t_off, 0)
-    p_len[:, 1:2 * Vx:2] = np.where(applied, chosen_len, 0)
-    p_src[:, 1:2 * Vx:2] = np.where(applied, alt_off[alt_i], 0)
+    p_len[:, 0:2 * Vx:2] = np.where(gtp > 0, o_idx - gap_src, 0)
+    p_src[:, 0:2 * Vx:2] = gap_src + t_off[:, None]
+    p_len[:, 1:2 * Vx:2] = s_plen[g]
+    p_src[:, 1:2 * Vx:2] = s_src[g]
     p_len[:, 2 * Vx] = t_len - prev_end[:, Vx]
-    p_src[:, 2 * Vx] = prev_end[:, Vx] + t_off[:, 0]
+    p_src[:, 2 * Vx] = prev_end[:, Vx] + t_off
     p_len[:, 2 * Vx + 1] = sep_len
     p_src[:, 2 * Vx + 1] = sep_off
 
@@ -492,9 +370,10 @@ def build_path_blocks_batch(args_list, k: int) -> PathBlock:
     keep = _first_seen(hashes, seq_len, cid, combined, p_src, p_len) \
         if P > 1 else None
     if keep is not None:
+        # rare: rebuild the packed stream from the kept rows only
         sel = np.flatnonzero(keep)
         stream, _ = _assemble(combined, p_len[sel], p_src[sel], w1, w2)
-        gtp, gtp64, cid = gtp[sel], gtp64[sel], cid[sel]
+        gtp, cid = gtp[sel], cid[sel]
         idx_path, len_path, seq_len = idx_path[sel], len_path[sel], \
             seq_len[sel]
         P = sel.size
@@ -503,7 +382,20 @@ def build_path_blocks_batch(args_list, k: int) -> PathBlock:
     cl_off = np.zeros(C + 1, np.int64)
     np.cumsum(np.bincount(cid, minlength=C), out=cl_off[1:])
     nis = np.maximum(0, seq_len - k + 1)
-    adjust = _adjust_plane(stream, starts, nis, gtp64, idx_path, len_path,
-                           k)
-    return PathBlock(stream, starts, nis, seq_len, gtp.astype(np.int16),
-                     adjust, cl_off, n_var)
+    adjust = _adjust_plane(stream, starts, nis, gtp, idx_path, len_path, k)
+    return PathBlock(stream, starts, nis, seq_len, gtp, adjust, cl_off,
+                     n_var)
+
+
+def _adjust_plane(stream, starts, nis, gtp, idx_path, len_path,
+                  k: int) -> np.ndarray:
+    """The new-kmer plane over the stream's windows: score._flat_planes
+    semantics, incl. the uint32-underflow quirk idxp + 1 >= k.  A path's
+    intervals stay inside its own windows (hi <= its start + nis)."""
+    n_win = max(0, stream.shape[0] - k + 1)
+    ok = (gtp > 0) & (idx_path + 1 >= k)
+    lo = starts[:-1, None] + np.maximum(0, idx_path + 1 - k)
+    hi = starts[:-1, None] + np.minimum(nis[:, None],
+                                        idx_path + len_path + k)
+    ok &= lo < hi
+    return _intervals_to_plane(lo[ok], hi[ok], n_win)

@@ -66,13 +66,14 @@ def _pack_stream(all_paths: list[VarPath], k: int):
 
 @dataclasses.dataclass
 class PathBlock:
-    """Array-native candidate set of ONE cluster (fused-scorer path).
+    """Array-native candidate set of a run of clusters (fused-scorer
+    path).
 
     Replaces list[VarPath] everywhere downstream of enumeration when a
     device scorer reduces per-path results on chip: a comb=15 cluster is
-    five arrays instead of 165k Python objects — built inside the worker
-    process, pickled as numpy buffers, selected from directly
-    (select.select_block)."""
+    a few arrays instead of 165k Python objects — built inside the
+    worker process, pickled as numpy buffers, selected from directly
+    (select.select_block, on ``cluster(i)``)."""
 
     stream: np.ndarray   # u8 codes; every path followed by k-1 separators
     starts: np.ndarray   # int64 [P+1] path code/window offsets; [-1] = len
@@ -80,24 +81,17 @@ class PathBlock:
     lens: np.ndarray     # int64 [P] sequence length per path
     gtp: np.ndarray      # int16 [P, n_var] allele index per variant
     adjust: np.ndarray   # bool [n_win] new-kmer asmK+1 plane
-    # a run of clusters built as one block (enumerate_fast.
-    # build_path_blocks_batch): cluster i's paths are rows
-    # cl_off[i]:cl_off[i + 1], its variants gtp's first n_var[i] columns;
-    # None for a block of one cluster
-    cl_off: np.ndarray | None = None
-    n_var: np.ndarray | None = None
+    # cluster i's paths are rows cl_off[i]:cl_off[i + 1], its variants
+    # gtp's first n_var[i] columns
+    cl_off: np.ndarray   # int64 [clusters + 1]
+    n_var: np.ndarray    # int64 [clusters]
 
     def rows(self, i: int) -> slice:
         """Cluster i's paths (rows of nis, lens, gtp and the scores)."""
-        if self.cl_off is None:
-            return slice(0, self.nis.shape[0])
         return slice(int(self.cl_off[i]), int(self.cl_off[i + 1]))
 
     def cluster(self, i: int) -> "PathBlock":
-        """Cluster i's own block, as views: the block itself for one
-        cluster."""
-        if self.cl_off is None:
-            return self
+        """Cluster i's own block (a run of one), as views."""
         r = self.rows(i)
         a, b = r.start, r.stop
         s0, s1 = int(self.starts[a]), int(self.starts[b])
@@ -107,11 +101,13 @@ class PathBlock:
         return PathBlock(self.stream[s0:s1], self.starts[a: b + 1] - s0,
                          self.nis[r], self.lens[r],
                          self.gtp[r, : int(self.n_var[i])],
-                         self.adjust[s0: s0 + n_win])
+                         self.adjust[s0: s0 + n_win],
+                         np.asarray([0, b - a], np.int64), self.n_var[i:i + 1])
 
 
 def build_path_block(paths: list[VarPath], k: int) -> PathBlock:
-    """Pack one cluster's enumerated paths into a PathBlock."""
+    """Pack one cluster's enumerated paths into a PathBlock (a run of
+    one)."""
     stream, starts = _pack_stream(paths, k)
     n_win = max(0, stream.shape[0] - k + 1)
     adjust, _ = _flat_planes(paths, starts, n_win, k, need_start=False)
@@ -122,7 +118,9 @@ def build_path_block(paths: list[VarPath], k: int) -> PathBlock:
     gtp = np.zeros((P, n_var), np.int16)
     for i, p in enumerate(paths):     # gt_path is always n_var long; the
         gtp[i, : len(p.gt_path)] = p.gt_path   # pad is belt-and-braces
-    return PathBlock(stream, starts, nis, lens, gtp, adjust)
+    return PathBlock(stream, starts, nis, lens, gtp, adjust,
+                     np.asarray([0, P], np.int64),
+                     np.asarray([n_var], np.int64))
 
 
 def dispatch_blocks(blocks, scorer, k: int):

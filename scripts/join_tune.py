@@ -8,9 +8,9 @@ constants, on one CUDA card:
 union: the windowed sorted join (csrc/union_join.cu); each variant
 (THREADS, QPT, SMEM entries) is compiled with nvcc -D overrides into
 build/merfin_tpu_torch/tune/, checked bit-exact against the plain PyTorch
-version, then timed (CUDA events, median of --reps, in turns with the
-plain version and the earlier binary search) on three synthetic streams
-with the shapes of the port's main paths:
+version, then timed (CUDA events, median of --reps, twice, after the
+plain version) on three synthetic streams with the shapes of the port's
+main paths:
 
   * hist: 2^20 sorted queries (89% table keys, 10% random, 1% u64::MAX)
     against 198,210,751 sorted random keys (two value columns), the
@@ -22,9 +22,7 @@ with the shapes of the port's main paths:
     a fused variant scorer span.
 
 window: the window join (csrc/window_join.cu); each variant (THREADS,
-QPT, CHUNK keys a stage, MINB CTAs an SM) likewise, in turns with the
-plain version and the
-earlier stream design (merfin_window_join_stream), with the median of
+QPT, CHUNK keys a stage, MINB CTAs an SM) likewise, with the median of
 back-to-back launches (20 between two CUDA events, as a loop of blocks
 enqueues them) beside the single-call time, at its two timed shapes:
 
@@ -236,8 +234,7 @@ def tune_window(data, built, reps: int, smi: str) -> list:
 
     from merfin_tpu_torch.ops.kmer_ops import bias
     from merfin_tpu_torch.ops.window_join import (lookup_plain, prefix_sums,
-                                                  prefix_u32,
-                                                  stream_window_join_kernel)
+                                                  prefix_u32)
 
     results = []
     for name in ("compl", "ratio"):
@@ -247,16 +244,10 @@ def tune_window(data, built, reps: int, smi: str) -> list:
         def plain():
             return lookup_plain(keys, vals, q, kb, cs)
 
-        def old():
-            return stream_window_join_kernel(keys, vals, q)
-
         want = plain()
-        assert torch.equal(old(), want)
         p_ms = median_ms(plain, reps)
-        o_ms = median_ms(old, reps)
         print(f"window {name}: {q.numel()} queries, {keys.numel()} keys; "
-              f"plain {p_ms:.4f} ms, stream {o_ms:.4f} ms; stream device "
-              f"time {split(old)}", flush=True)
+              f"plain {p_ms:.4f} ms", flush=True)
         for v, (path, _) in built:
             kern = bind_window(path)
 
@@ -267,16 +258,14 @@ def tune_window(data, built, reps: int, smi: str) -> list:
             torch.cuda.synchronize()
             ok = torch.equal(got, want)
             n_ms = median_ms(new, reps)
-            o2 = median_ms(old, reps)
             n2 = median_ms(new, reps)
             b2b = back_to_back_ms(new, reps)
             print(f"  {v}: exact={ok} window {min(n_ms, n2):.4f} ms, back "
-                  f"to back {b2b:.4f} ms (stream again {o2:.4f}); device "
-                  f"time {split(new)}", flush=True)
+                  f"to back {b2b:.4f} ms; device time {split(new)}",
+                  flush=True)
             results.append(dict(kernel="window", shape=name, variant=v,
                                 exact=ok, ms=min(n_ms, n2),
-                                back_to_back_ms=b2b,
-                                stream_ms=min(o_ms, o2), plain_ms=p_ms,
+                                back_to_back_ms=b2b, plain_ms=p_ms,
                                 card=smi))
     return results
 
@@ -302,7 +291,6 @@ def main() -> int:
         print("join_tune: no CUDA device", file=sys.stderr)
         return 1
     from merfin_tpu_torch.ops.union_join import (UnionJoinKernel,
-                                                 bsearch_join_kernel,
                                                  fence_index, lookup2_plain)
     from merfin_tpu_torch.ops.sorted_join import (SortedJoinKernel,
                                                   lookup_plain)
@@ -336,21 +324,13 @@ def main() -> int:
         if len(vals) == 2:
             def plain():
                 return lookup2_plain(keys, vals[0], vals[1], q, kb)
-
-            def old():
-                return bsearch_join_kernel(keys, vals[0], vals[1], q)
         else:
             def plain():
                 return (lookup_plain(keys, vals[0], q, kb),)
-
-            def old():
-                return bsearch_join_kernel(keys, vals[0], None, q)
         want = plain()
-        assert all(torch.equal(a, b) for a, b in zip(old(), want))
         p_ms = median_ms(plain, args.reps)
-        o_ms = median_ms(old, args.reps)
         print(f"{name}: {q.numel()} queries, {keys.numel()} keys; plain "
-              f"{p_ms:.4f} ms, bsearch {o_ms:.4f} ms", flush=True)
+              f"{p_ms:.4f} ms", flush=True)
         for v, (path, _) in union_built:
             union = bind(UnionJoinKernel, path)
             single = bind(SortedJoinKernel, path)
@@ -367,13 +347,11 @@ def main() -> int:
                 print(f"  {v}: device time by kernel, {split(new)}",
                       flush=True)
             n_ms = median_ms(new, args.reps)
-            o2 = median_ms(old, args.reps)
             n2 = median_ms(new, args.reps)
-            print(f"  {v}: exact={ok} windowed {min(n_ms, n2):.4f} ms "
-                  f"(bsearch again {o2:.4f})", flush=True)
+            print(f"  {v}: exact={ok} windowed {min(n_ms, n2):.4f} ms",
+                  flush=True)
             results.append(dict(kernel="union", shape=name, variant=v,
-                                exact=ok, ms=min(n_ms, n2),
-                                bsearch_ms=min(o_ms, o2), plain_ms=p_ms,
+                                exact=ok, ms=min(n_ms, n2), plain_ms=p_ms,
                                 card=smi))
     if "window" in args.kernels:
         results += tune_window(data, window_built, args.reps, smi)

@@ -1,17 +1,18 @@
-"""The batched light-cluster build (enumerate_fast.build_path_blocks_batch)
-against build_path_block_fast, cluster by cluster, bit for bit; the
-dispatched stream of a batch against the same clusters' single blocks;
-and the build task's two forms."""
+"""The fused path's builder (enumerate_fast.build_path_blocks), over
+runs of clusters and runs of one, against the JAX package's
+build_path_block_fast, cluster by cluster, bit for bit; the dispatched
+stream of runs against the same clusters' reference blocks; and the
+build task."""
 
 import random
 
 import numpy as np
 import pytest
 
+from merfin_tpu.variants.enumerate_fast import build_path_block_fast
 from merfin_tpu_torch.modes import variants as mv
 from merfin_tpu_torch.utils import spans
-from merfin_tpu_torch.variants.enumerate_fast import (build_path_block_fast,
-                                                      build_path_blocks_batch)
+from merfin_tpu_torch.variants.enumerate_fast import build_path_blocks
 from merfin_tpu_torch.variants.score import dispatch_blocks, fetch_blocks
 
 FIELDS = ("stream", "starts", "nis", "lens", "gtp", "adjust")
@@ -80,16 +81,18 @@ def random_run(rng, k, n):
 def test_batch_equals_single_builds(k, seed, native, monkeypatch):
     """With the native library and with its numpy fallbacks (assembly
     and the adjust plane) on both sides."""
+    from merfin_tpu import native as j_nat
     from merfin_tpu_torch import native as nat
 
     assert nat.get_lib() is not None
     if not native:
         monkeypatch.setattr(nat, "get_lib", lambda: None)
+        monkeypatch.setattr(j_nat, "get_lib", lambda: None)
     rng = random.Random(1000 * k + seed)
     n_paths = dedups = 0
     for trial in range(40):
         run = random_run(rng, k, rng.randint(1, 40))
-        batch = build_path_blocks_batch(run, k)
+        batch = build_path_blocks(run, k)
         assert batch.cl_off.shape == (len(run) + 1,)
         for i, args in enumerate(run):
             ctx = f"seed {seed} trial {trial} cluster {i}: {args}"
@@ -124,14 +127,18 @@ def test_batch_edge_runs():
          (t, [9, 4, 6], [1, 3, 1], [[t[9], "A"], [t[4:7], "C"], [t[6], ""]])],
     ]
     for run in runs:
-        batch = build_path_blocks_batch(run, k)
+        batch = build_path_blocks(run, k)
         assert batch.cl_off.shape == (len(run) + 1,)
         for i, args in enumerate(run):
+            one = build_path_blocks([args], k)
+            assert one.cl_off.shape == (2,)
             if args is not None:
-                assert_block_equal(batch.cluster(i),
-                                   build_path_block_fast(*args, k), str(args))
+                want = build_path_block_fast(*args, k)
+                assert_block_equal(batch.cluster(i), want, str(args))
+                assert_block_equal(one.cluster(0), want, str(args))
             else:
                 assert batch.cluster(i).nis.shape[0] == 0
+                assert one.cluster(0).nis.shape[0] == 0
 
 
 class Recorder:
@@ -151,9 +158,9 @@ def test_batch_dispatch_equals_single_blocks(k):
     rng = random.Random(k)
     run_a, run_b = random_run(rng, k, 30), random_run(rng, k, 17)
     heavy = random_cluster(rng, k)
-    units = [build_path_blocks_batch(run_a, k),
-             build_path_block_fast(*heavy, k),
-             build_path_blocks_batch(run_b, k)]
+    units = [build_path_blocks(run_a, k),
+             build_path_blocks([heavy], k),
+             build_path_blocks(run_b, k)]
     singles = [None if a is None else build_path_block_fast(*a, k)
                for a in run_a + [heavy] + run_b]
     sc = Recorder()
@@ -176,19 +183,21 @@ def test_batch_dispatch_equals_single_blocks(k):
 
 
 def test_enumerate_block_task_single_and_batch_forms():
+    """The task's one form, ``(enum_args[lo:hi], k)``: a heavy unit of
+    one and a run."""
     single = ("ACGTACGTAC", [3], [1], [["T", "G"]])
     run = [single, None, ("ACGTACGTACGT", [2, 6], [1, 2],
                           [["G", "A"], ["AC", "A", "ACT"]])]
     spans.clear()
     spans.enable()
     try:
-        one = mv._enumerate_block_task((single, 5))
+        one = mv._enumerate_block_task(([single], 5))
         many = mv._enumerate_block_task((run, 5))
     finally:
         spans.disable()
-    assert one.cl_off is None
-    assert_block_equal(one, build_path_block_fast(*single, 5))
-    assert_block_equal(many.cluster(0), one)
+    assert one.cl_off.tolist() == [0, 2] and one.n_var.tolist() == [1]
+    assert_block_equal(one.cluster(0), build_path_block_fast(*single, 5))
+    assert_block_equal(many.cluster(0), one.cluster(0))
     assert_block_equal(many.cluster(2), build_path_block_fast(*run[2], 5))
     assert mv._enumerate_block_task(None) is None
     got = [s.counts for s in spans.records() if s.name == "variants.enumerate"]

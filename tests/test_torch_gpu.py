@@ -1,14 +1,14 @@
 """Card-only tests of the torch port (marker ``gpu``): each CUDA kernel
-(union_join, sorted_join, window_join, and the earlier binary search and
-stream designs, path_sum) vs its plain version on random tables, on the windowed
-joins' edge cases and on window tables whose keys repeat, -hist,
--completeness, -dump and the variant modes on CUDA vs on the CPU
-(-completeness also through a many-times-wrapped pinned ring), the
-fused variant scorer on CUDA (union join and gather probe) vs on the
-CPU, the gather tables on CUDA vs HostLookup, the counter's device
-accumulator and device step vs the numpy counter, the sharded tables'
-probes (one sorted_join launch a shard, never the plain version), and
--mesh 1x1 on the card vs -mesh 2x4 on 8 logical CPU devices.
+(union_join, sorted_join, window_join, path_sum) vs its plain version on
+random tables, on the windowed joins' edge cases and on window tables
+whose keys repeat, -hist, -completeness, -dump and the variant modes on
+CUDA vs on the CPU (-completeness also through a many-times-wrapped
+pinned ring), the fused variant scorer on CUDA (union join and gather
+probe) vs on the CPU, the gather tables on CUDA vs HostLookup, the
+counter's device accumulator and device step vs the numpy counter, the
+sharded tables' probes (one sorted_join launch a shard, never the plain
+version), and -mesh 1x1 on the card vs -mesh 2x4 on 8 logical CPU
+devices.
 
 They skip where torch.cuda.is_available() is false.  This file imports
 no JAX, so it runs on a machine with a card and no JAX:
@@ -221,7 +221,7 @@ def test_device_scorer_cuda_matches_cpu(cuda, with_prob, tmp_path):
     import chip_smoke as cs
     from merfin_tpu_torch.io.mkdb import KmerDB
     from merfin_tpu_torch.io.prob import load_prob_table
-    from merfin_tpu_torch.variants.enumerate_fast import build_path_block_fast
+    from merfin_tpu_torch.variants.enumerate_fast import build_path_blocks
     from merfin_tpu_torch.variants.score import dispatch_blocks
     from merfin_tpu_torch.ops.union_join import union_join_kernel
     from merfin_tpu_torch.table.lookup import DeviceLookup
@@ -242,7 +242,7 @@ def test_device_scorer_cuda_matches_cpu(cuda, with_prob, tmp_path):
         haps = [[t[i], cs.ALT_OF[t[i]]] if j % 3 else
                 [t[i], cs.ALT_OF[t[i]], cs.ALT_OF[cs.ALT_OF[t[i]]]]
                 for j, i in enumerate(idx)]
-        blocks.append(build_path_block_fast(t, idx, [1] * len(idx), haps, 21))
+        blocks.append(build_path_blocks([(t, idx, [1] * len(idx), haps)], 21))
 
     class Capture:
         def dispatch_paths(self, *args):
@@ -327,18 +327,14 @@ def test_gather_table_on_card(cuda, k, strategy):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", range(7))
 def test_windowed_joins_on_edge_cases(cuda, case):
-    """The windowed union and single-value joins, the window join and the
-    earlier designs (binary search, stream), each against its plain
-    version, on the edge cases of chip_smoke.join_edge_cases at the built
-    constants."""
+    """The windowed union and single-value joins and the window join,
+    each against its plain version, on the edge cases of
+    chip_smoke.join_edge_cases at the built constants."""
     import chip_smoke as cs
     from merfin_tpu_torch.ops.sorted_join import (SortedJoinTable,
                                                   sorted_join_kernel)
-    from merfin_tpu_torch.ops.union_join import (UnionTable,
-                                                 bsearch_join_kernel,
-                                                 union_join_kernel)
-    from merfin_tpu_torch.ops.window_join import (SortJoinTable,
-                                                  stream_window_join_kernel)
+    from merfin_tpu_torch.ops.union_join import UnionTable, union_join_kernel
+    from merfin_tpu_torch.ops.window_join import SortJoinTable
 
     cfg = union_join_kernel.config()
     cases = cs.join_edge_cases(np.random.default_rng(case), cfg)
@@ -347,34 +343,29 @@ def test_windowed_joins_on_edge_cases(cuda, case):
     table = UnionTable(keys, v0, v1, cuda)
     got = table.lookup2_sorted(qt)
     want = table.lookup2_plain(qt)
-    old = bsearch_join_kernel(table.keys, table.read_vals, table.asm_vals, qt)
     single = SortedJoinTable(keys, v0, cuda)
     got1 = single.lookup_sorted(qt)
     want1 = single.lookup_plain(qt)
-    old1 = bsearch_join_kernel(single.keys, single.vals, None, qt)
     window = SortJoinTable(keys, v0, cuda)
     got_w = window.lookup_sorted(qt)
-    old_w = stream_window_join_kernel(window.keys, window.vals, qt)
     torch.cuda.synchronize()
-    for g, o, w in zip(got, old, want):
+    for g, w in zip(got, want):
         assert torch.equal(g, w), label
-        assert torch.equal(o, w), label
-    assert torch.equal(got1, want1) and torch.equal(old1[0], want1), label
-    assert torch.equal(got_w, want1) and torch.equal(old_w, want1), label
+    assert torch.equal(got1, want1), label
+    assert torch.equal(got_w, want1), label
     assert sorted_join_kernel.launches > 0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", range(3))
 def test_window_join_on_equal_key_runs(cuda, case):
-    """The window join and its earlier stream design against the plain
-    version on tables whose keys repeat (chip_smoke.window_edge_cases at
+    """The window join against the plain version on tables whose keys
+    repeat (chip_smoke.window_edge_cases at
     the built tile, chunk and dense/wide threshold): runs across chunk
     and tile boundaries, a run of 5,000+ keys, wrapping sums, sentinels,
     ragged lengths; bit-exact."""
     import chip_smoke as cs
     from merfin_tpu_torch.ops.window_join import (SortJoinTable,
-                                                  stream_window_join_kernel,
                                                   window_join_kernel)
 
     cfg = window_join_kernel.config()
@@ -387,11 +378,9 @@ def test_window_join_on_equal_key_runs(cuda, case):
     before = window_join_kernel.launches
     got = table.lookup_sorted(qt)
     want = table.lookup_plain(qt)
-    old = stream_window_join_kernel(table.keys, table.vals, qt)
     torch.cuda.synchronize()
     assert window_join_kernel.launches == before + 1
     assert torch.equal(got, want), label
-    assert torch.equal(old, want), label
     assert (want != 0).any()
 
 

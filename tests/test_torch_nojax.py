@@ -121,7 +121,7 @@ def test_variant_worker_module_imports_no_torch():
     (and the enumeration it runs) without paying for a torch import."""
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import merfin_tpu_torch.modes.variants as mv\n"
-            "mv._enumerate_block_task(((\"ACGTACGTAC\", [3], [1], [[\"T\", \"G\"]]), 5))\n"
+            "mv._enumerate_block_task(([(\"ACGTACGTAC\", [3], [1], [[\"T\", \"G\"]])], 5))\n"
             "mv._enumerate_task((\"ACGTACGTAC\", [3], [1], [[\"T\", \"G\"]]))\n"
             "bad = sorted(m for m in sys.modules if m == 'torch' or "
             "m.startswith(('torch.', 'jax', 'merfin_tpu.')))\n"

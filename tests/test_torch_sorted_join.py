@@ -26,7 +26,6 @@ from merfin_tpu_torch.ops.sortjoin import build_sortjoin_table
 from merfin_tpu_torch.ops.union_join import u32_to_int64
 from merfin_tpu_torch.ops.window_join import (SortJoinTable,
                                               SortJoinTableV5,
-                                              stream_window_join_kernel,
                                               window_join_kernel)
 
 U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -224,8 +223,7 @@ def test_lookup_sorted_with_foreign_tree():
 def test_cuda_wrappers_refuse_cpu_tensors():
     z = torch.zeros(4, dtype=torch.int64)
     for kern, index in ((sorted_join_kernel, [z[:1]]),
-                        (window_join_kernel, []),
-                        (stream_window_join_kernel, [])):
+                        (window_join_kernel, [])):
         with pytest.raises(ValueError):
             kern(z, z.to(torch.int32), *index, z)
         assert kern.launches == 0
